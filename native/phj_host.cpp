@@ -2,7 +2,7 @@
 //
 // The reference's runtime layer is native C++ (thread pool:
 // src/Common/ThreadPool.cpp, generators: src/DataGenerator/*.cpp, RNG:
-// src/Common/Random.cpp).  The TPU engine's compute path is JAX/XLA, but the
+// src/Common/Random.cpp).  The engine's compute path is JAX/XLA, but the
 // host side keeps a native runtime for data ingest: this library generates
 // relations in parallel on the host (feeding device transfer or file ingest)
 // and doubles as an independent oracle for the device-side Zipf sampler.

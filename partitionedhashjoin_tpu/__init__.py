@@ -1,25 +1,26 @@
-"""partitionedhashjoin_tpu — a TPU-native vectorized query-execution engine.
+"""partitionedhashjoin_tpu — a vectorized query-execution engine in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
+A JAX/XLA implementation of the capabilities of the reference
 C++ benchmark suite ``ragoragino/partitionedhashjoin`` (the Blanas SIGMOD'11
 no-partitioning and radix-partitioning main-memory hash joins), extended to a
 fuller kernel suite (radix sort, filter, hash aggregate) and to multi-chip
-execution over a ``jax.sharding.Mesh``.
+execution over a ``jax.sharding.Mesh``.  It runs on NVIDIA GPUs (and on
+the CPU for tests).
 
-Architecture (TPU-first, not a translation):
+Architecture (not a translation of the reference's C++):
 
 - The reference's latched pointer-chasing hash tables (src/HashTables/) become
-  *sorted-array* tables plus vectorized merge kernels: on TPU there are no
-  atomics and random HBM gathers run at ~7.5 ns/element, while 1-operand sorts
-  stream at ~3 ns/element and merge scans run at full VPU rate.  Conflict
-  freedom is by construction, exactly like the reference's scatter phase
+  *sorted-array* tables probed by vectorized binary search: one-key sorts go
+  to the GPU's radix sort, and a sorted build run of 10M keys stays resident
+  in the H100's L2 during the probe.  Conflict freedom is by construction,
+  exactly like the reference's scatter phase
   (src/RadixCluster/HashJoin.hpp:394-412) but for every phase.
 - The reference's thread pool (src/Common/ThreadPool.*) becomes XLA: a single
   jitted program *is* the staged pipeline; multi-chip parallelism uses
   ``shard_map`` + collectives instead of worker threads.
 - The reference's cache/TLB-conscious radix fan-out (src/RadixCluster/) becomes
-  a VMEM-conscious partitioner: partitions sized so per-partition state fits
-  VMEM during the merge/probe kernels.
+  range-radix clustering by sorting: every partition is a contiguous key range
+  of the sorted relation.
 """
 
 from partitionedhashjoin_tpu import config

@@ -1,6 +1,6 @@
 """Typed configuration for the engine.
 
-TPU-native counterpart of the reference's configuration layer
+Counterpart of the reference's configuration layer
 (src/Common/Configuration.hpp:55-68, src/Common/Configuration.cpp:4-106,
 src/Arguments.hpp:7-18, src/NoPartitioning/Configuration.hpp,
 src/RadixCluster/Configuration.hpp).  String forms of the enums match the
@@ -131,26 +131,25 @@ class NoPartitioningConfiguration:
     """No-partitioning join knobs (src/NoPartitioning/Configuration.hpp:5-8).
 
     The reference's MinBatchSize (=10000) sizes per-thread work batches; the
-    TPU analogue is the probe chunk size — rows per dispatched probe program
+    analogue here is the probe chunk size — rows per dispatched probe program
     (ops/hash_table.py::dispatch_chunks).
     """
 
     min_batch_size: int = 10_000
-    #: probe rows per dispatched chunk in "chained" mode (the TPU analogue of
+    #: probe rows per dispatched chunk in "chained" mode (the analogue of
     #: MinBatchSize's per-thread batching: bounds single-program runtime and
-    #: temp memory — the gather probe costs ~90 ns/row, so 25M rows ≈ 2.3 s
-    #: per program, safely under the 20-30 s device watchdog)
+    #: the gather probe's temporaries)
     probe_chunk_rows: int = 25_000_000
-    #: probe rows per dispatched chunk in "vmem" mode.  The sort+kernel probe
-    #: costs ~3 ns/row — ~30x cheaper than the gather probe — so its chunk
-    #: bound engages only for relations ~10x past the benchmark scale
-    #: (2B rows ≈ 6 s/program); int64 probes are never chunked (validity
-    #: masks are int32-path only, documented in merge_join.PreparedBuild)
+    #: probe rows per dispatched chunk in "vmem" mode: the sort + search
+    #: probe is far cheaper per row than the gather probe, so its bound
+    #: engages only for relations ~10x past the benchmark scale; int64
+    #: probes are never chunked (validity masks are int32-path only,
+    #: documented in merge_join.PreparedBuild)
     vmem_probe_chunk_rows: int = 2_000_000_000
-    #: global-structure layout: "vmem" = sorted build run probed by the
-    #: Mosaic merge-probe kernel (zero HBM gathers), "chained" = chained
-    #: hash table probed by HBM gathers (the literal table analogue),
-    #: "auto" = vmem when the kernel backend is available
+    #: global-structure layout: "vmem" = sorted build run probed by binary
+    #: search (the name is historical), "chained" = chained hash table
+    #: probed by gathers (the literal table analogue), "auto" = the faster
+    #: of the two on the H100 (ops/no_partitioning.AUTO_MODE)
     mode: str = "auto"
 
 
@@ -158,9 +157,7 @@ class NoPartitioningConfiguration:
 class RadixClusteringConfiguration:
     """Radix join knobs (src/RadixCluster/Configuration.hpp:5-9).
 
-    number_of_partitions mirrors the reference default (=32).  On TPU the
-    partitioner is VMEM-conscious instead of TLB-conscious: partitions are
-    sized so build-side partitions fit VMEM during the probe kernel.
+    number_of_partitions mirrors the reference default (=32).
     """
 
     number_of_partitions: int = 32
@@ -170,14 +167,14 @@ class RadixClusteringConfiguration:
     partition_passes: int = 1
     #: partition/probe implementation:
     #:   "vmem"    range-radix clustering (sort by key = contiguous key-range
-    #:             partitions, Manegold's radix-cluster on key bits) + the
-    #:             VMEM merge-probe kernel (ops/pallas/merge_probe.py) — no
-    #:             HBM gathers; number_of_partitions is advisory (the kernel
-    #:             ranges every probe block individually)
+    #:             partitions, Manegold's radix-cluster on key bits) + a
+    #:             binary-search probe of the sorted build run
+    #:             (ops/merge_join.py); number_of_partitions is advisory
+    #:             (the name is historical)
     #:   "chained" hash(key)&(P-1) fan-out + per-partition chained tables
     #:             (the reference's exact structure, HashJoin.hpp:243-440)
-    #:   "auto"    "vmem" when the Mosaic kernel runs on this backend,
-    #:             else "chained"
+    #:   "auto"    the faster of the two on the H100
+    #:             (ops/radix_cluster.AUTO_MODE)
     mode: str = "auto"
 
 

@@ -4,7 +4,8 @@ The engine's host-side runtime is C++ (native/phj_host.cpp): a worker-pool
 batch executor plus the sequential/Zipf table generators and a hash-set join
 oracle, mirroring the reference's native L2/L3 role (src/Common/ThreadPool.*,
 src/DataGenerator/*).  This module binds it via ctypes (no pybind11 in the
-image) and auto-builds the shared library with ``make`` on first use.
+image) and builds the shared library with ``make`` on first use in each
+process (a no-op when it is up to date; a failed build raises).
 
 Use cases: host-side ingest generation (feeding ``jax.device_put``),
 independent statistical oracles for the device Zipf sampler, and fast exact
@@ -35,10 +36,9 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(
-                ["make", "-s"], cwd=_NATIVE_DIR, check=True
-            )
+        # always run make: it rebuilds a library older than its sources
+        # and does nothing otherwise
+        subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True)
         lib = ctypes.CDLL(_LIB_PATH)
         i32p = ctypes.POINTER(ctypes.c_int32)
         lib.phj_generate_sequential.argtypes = [

@@ -1,11 +1,11 @@
 """Struct-of-arrays relation table.
 
-TPU-native counterpart of the reference's row-oriented
+Counterpart of the reference's row-oriented
 ``Table<Tuple{int64 id, int64 payload}>`` (src/Common/Table.hpp:20-57).  A
 row-array of 16-byte aligned tuples is the right layout for cache-line
-pointer-chasing on a CPU; on TPU the right layout is struct-of-arrays so keys
-and payloads stream as dense lane-parallel vectors.  Identity is a UUID like
-the reference (src/Common/Table.cpp:18-22).
+pointer-chasing on a CPU; on an accelerator the right layout is
+struct-of-arrays so keys and payloads stream as dense coalesced vectors.
+Identity is a UUID like the reference (src/Common/Table.cpp:18-22).
 
 The table is a registered pytree, so it passes through jit/shard_map freely;
 ``uuid`` is static metadata.

@@ -3,15 +3,16 @@
 Part of the extended db_exec_kernel suite (BASELINE.json north star); the
 reference has no standalone filter operator — its closest analogue is the
 accept/reject masking inside the Zipf sampler (src/DataGenerator/Zipf.cpp:
-46-53).  TPU-native selection is mask → exclusive prefix sum → scatter
-(conflict-free by construction, like the radix scatter,
-src/RadixCluster/HashJoin.hpp:394-412): output position of row i is the count
-of selected rows before i.  Output capacity is static (= input size); ``count``
-gives the number of valid rows.
+46-53).  Selection is mask → exclusive prefix sum → scatter (conflict-free by
+construction, like the radix scatter, src/RadixCluster/HashJoin.hpp:394-412):
+output position of row i is the count of selected rows before i.  Output
+capacity is static (default: the input size); ``count`` gives the number of
+selected rows.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import jax
@@ -20,20 +21,24 @@ import jax.numpy as jnp
 from partitionedhashjoin_tpu.data.table import Table, make_table
 
 
-@jax.jit
-def compact(mask: jax.Array, *columns: jax.Array):
-    """Scatter rows where ``mask`` into the front of same-size outputs.
+@functools.partial(jax.jit, static_argnames=("capacity",))
+def compact(mask: jax.Array, *columns: jax.Array, capacity=None):
+    """Scatter rows where ``mask`` into the front of static-size outputs.
 
     Returns ``(count, *compacted_columns)``; rows past ``count`` are zeros.
-    Stable: selected rows keep their relative order.
+    Stable: selected rows keep their relative order.  ``capacity`` (default
+    the input size) bounds the outputs: selected rows past it are dropped,
+    and ``count`` stays exact.
     """
     n = mask.shape[0]
+    cap = n if capacity is None else capacity
     mask = jnp.asarray(mask, jnp.bool_)
     inc = mask.astype(jnp.int32)
     pos = jnp.cumsum(inc) - inc  # exclusive prefix sum
-    dst = jnp.where(mask, pos, n)  # rejected rows -> dump slot
+    dst = jnp.where(mask, pos, cap)  # rejected rows -> dropped slot
     outs = tuple(
-        jnp.zeros((n,), c.dtype).at[dst].set(c, mode="drop") for c in columns
+        jnp.zeros((cap,), c.dtype).at[dst].set(c, mode="drop")
+        for c in columns
     )
     return (jnp.sum(inc),) + outs
 
@@ -44,11 +49,7 @@ def compact_sort(mask: jax.Array, *columns: jax.Array):
 
     Returns ``(count, *partitioned_columns)``.  Rows past ``count`` are the
     REJECTED rows (also in original order) rather than zeros — a stable
-    partition, not a zero-padded compaction.  At relation scale this is the
-    cheaper formulation on this chip: the 2-key unstable sort moves data at
-    ~3.9 ns/el total vs ~8.6 ns/el per scatter-set column for ``compact``
-    (docs/PERFORMANCE.md primitive table), and extra value operands ride the
-    same sort at ~1 ns/el each.
+    partition, not a zero-padded compaction.
     """
     n = mask.shape[0]
     flag = jnp.where(jnp.asarray(mask, jnp.bool_), 0, 1).astype(jnp.int32)
@@ -70,9 +71,8 @@ def filter_table(
     size with the selected rows in ``[0, count)`` (original order).  By
     default rows past ``count`` are ZEROS (``compact`` semantics — safe for
     callers that reduce over the full static-capacity column without slicing
-    by ``count``).  Pass ``zero_tail=False`` for the fast formulation at
-    relation scale (``compact_sort`` stable partition, ~3.9 ns/el total vs
-    ~8.6 ns/el per scattered column): rows past ``count`` are then the
+    by ``count``).  Pass ``zero_tail=False`` for the sort formulation
+    (``compact_sort`` stable partition): rows past ``count`` are then the
     REJECTED rows in original order, NOT zeros.
     """
     mask = predicate(table.keys, table.payloads)

@@ -1,11 +1,11 @@
 """Device-side data generators: the engine's first kernels.
 
-TPU-native counterparts of src/DataGenerator/:
+Counterparts of src/DataGenerator/:
 
 - ``sequential_keys`` / ``sequential_table``: ids ``start, start+1, ...`` with
-  ``payload = row index`` (src/DataGenerator/Sequential.cpp:20-25).  On TPU
-  this is a single iota — the reference's per-thread batch loop
-  (Sequential.cpp:27-39) is replaced by lane parallelism.
+  ``payload = row index`` (src/DataGenerator/Sequential.cpp:20-25).  This is
+  a single iota — the reference's per-thread batch loop (Sequential.cpp:27-39)
+  is replaced by data parallelism.
 - ``zipf_keys`` / ``zipf_table``: Zipf(alpha)-distributed ids over a closed
   range [lo, hi] via the same inverse-CDF-proposal rejection sampler as the
   reference (src/DataGenerator/Zipf.cpp:14-56, after
@@ -53,8 +53,7 @@ def _zipf_params(alpha: float, cardinality: int) -> Tuple[float, float, float]:
 def zipf_candidates(u1, u2, alpha: float, cardinality: int, u3=None):
     """One vectorized accept/reject round given uniforms in [0, 1).
 
-    Returns (samples int32 in [1, cardinality], accepted bool).  Pure jnp —
-    usable inside Pallas kernels with hardware PRNG uniforms.
+    Returns (samples int32 in [1, cardinality], accepted bool).  Pure jnp.
 
     Float32 has a 24-bit mantissa, so for cardinality > 2^24 the inverse-CDF
     lands only on multiples of the local float spacing (4 at 2^24..2^25, 8
@@ -140,9 +139,8 @@ def zipf_keys(
     one round suffices in practice; a host-level refill loop tops up any
     shortfall exactly.  Replaces the earlier lockstep all-slots-retry
     while_loop, which re-ran full-width threefry + pow over all n slots
-    until the LAST slot accepted (~7 rounds, 216 s for the 200M-row bench
-    generate; this formulation runs one 1.35x-wide round + one ~4 ns/el
-    compaction sort).
+    until the LAST slot accepted (~7 rounds; this formulation runs one
+    1.35x-wide round + one compaction sort).
     """
     _zipf_params(alpha, cardinality)  # validate alpha (raises early)
     if n == 0:
@@ -156,7 +154,7 @@ def zipf_keys(
         if remaining < n:
             # refill rounds: snap the data-dependent shortfall size to a
             # power of two so rare top-ups reuse a cached compile instead of
-            # paying a fresh 30-200 s remote compile per distinct m
+            # paying a fresh compile per distinct m
             m = min(first_m, 1 << (m - 1).bit_length())
         vals, cnt = _zipf_round(sub, m, alpha, cardinality)
         take = min(int(cnt), remaining)

@@ -1,16 +1,16 @@
 """Vectorized seedable hashing.
 
-TPU-native counterpart of the reference's XXHasher (src/Common/IHasher.hpp:6-11,
+Counterpart of the reference's XXHasher (src/Common/IHasher.hpp:6-11,
 src/Common/XXHasher.hpp:10-28: XXH3_64bits_withSeed over the 8-byte key,
 reduced ``% cardinality``).  We use a murmur3-style finalizer (avalanche
-multiply-xor-shift) rather than XXH3: on the VPU the finalizer is a handful of
-lane-parallel uint32 ops, the avalanche quality is equivalent for 4/8-byte
+multiply-xor-shift) rather than XXH3: the finalizer is a handful of
+data-parallel uint32 ops, the avalanche quality is equivalent for 4/8-byte
 fixed-width keys, and the reference's contract is only "uniform seeded hash to
 [0, cardinality)" — its two hashers are decorrelated by random seeds, not by
 algorithm (src/main.cpp:211-217,267).
 
-All functions are pure jnp on unsigned ints, so they work identically inside
-Pallas kernels and in traced XLA code, on TPU and CPU.
+All functions are pure jnp on unsigned ints, so they work identically in any
+traced program, on the GPU and the CPU.
 """
 
 from __future__ import annotations

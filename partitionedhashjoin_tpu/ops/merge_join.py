@@ -1,27 +1,30 @@
-"""Two-run merge-count join: sort each relation once, probe in VMEM.
+"""Two-run merge join: sort each relation once, probe the sorted build run.
 
-The engine's fastest exact count join on TPU and the implementation behind
-both the flagship joiner's fast path (ops/sort_merge.py) and the radix
-joiner's VMEM mode (ops/radix_cluster.py):
+The implementation behind the flagship joiner's count (ops/sort_merge.py),
+the radix and no-partitioning joiners' "vmem" mode, the planner's general
+plan and the query layer's key-ordered materializer:
 
-    partition/order:  one UNstable 1-key sort per relation (~2.1 ns/el
-                      measured — vs 3.1 ns/el for the round-1 concatenated
-                      2-key sort, and it sorts 10M fewer rows)
-    probe:            ops/pallas/merge_probe.py — per-block build ranges
-                      DMA'd to VMEM, in-register binary search, zero HBM
-                      gathers
+    order:  one unstable 1-key sort per relation (a single-key sort is the
+            form XLA:GPU hands to CUB's radix sort)
+    probe:  on the GPU, the windowed Pallas/Triton probe
+            (ops/windowed_probe.py): each block of sorted probe keys
+            binary-searches only its window of the sorted build run.
+            Elsewhere (and for int64 keys) one vectorized
+            ``jnp.searchsorted`` of every probe key over the whole run.
+            A 10M-row int32 build run is 40 MB, which stays resident in
+            the H100's 50 MB L2 during the probe.
 
 Sorting by key IS range-radix clustering (partition = contiguous key range;
 Manegold et al.'s radix-cluster on key bits — the reference hashes first
 only to randomize arbitrary key sets, src/RadixCluster/HashJoin.hpp:349;
-comparison sorting needs no such randomization, so the TPU form is
+comparison sorting needs no such randomization, so the sorted form is
 distribution-robust by construction).
 
 Validity masks (bucketized/padded inputs from parallel/shuffle.py) are
 supported exactly: invalid rows are rewritten to INT32_MAX before the sort,
-the kernel's searched ranges are clamped to exclude the INT32_MAX region
-entirely (genuine or not), and genuine INT32_MAX matches are restored by a
-closed-form correction term — sentinel-free over the full int32 domain.
+probe rows equal to INT32_MAX are never counted by the search, and genuine
+INT32_MAX matches are restored by a closed-form correction term —
+sentinel-free over the full int32 domain.
 """
 
 from __future__ import annotations
@@ -31,63 +34,39 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from partitionedhashjoin_tpu.ops.pallas import merge_probe
-
 _I32_MAX = jnp.iinfo(jnp.int32).max
 
-# Which unstable 1-key int32 sort the two-run join's partition step uses:
-#   "xla"    jax.lax.sort (2.1 ns/el measured on chip)
-#   "pallas" ops/pallas/bitonic_sort.sort_i32 (in-register block sort +
-#            merge-path passes; see docs/PERFORMANCE.md for measured cost)
-#   "auto"   pallas on a real Mosaic backend, xla under interpret/CPU (so
-#            the CPU test suite never pays interpret-mode network sorts)
-# Module-level because it is a backend-tuning fact, not a per-call choice.
-_SORT_IMPL = "xla"
+#: ``jnp.searchsorted`` algorithm of the plain search: "scan_unrolled"
+#: unrolls the log2(n) rounds into one fused program.  It measured faster
+#: than "scan" in either probe order and faster than "sort" on an unsorted
+#: probe on the H100 (PERF.md, path decisions).
+SEARCH_METHOD = "scan_unrolled"
 
 
-def set_sort_impl(impl: str) -> None:
-    global _SORT_IMPL
-    if impl not in ("xla", "pallas", "auto"):
-        raise ValueError(f"unknown sort impl {impl!r}")
-    _SORT_IMPL = impl
-
-
-def resolve_sort_impl(impl: str, interpret: bool = False) -> str:
-    """Collapse "auto" to a concrete impl for the current backend."""
-    if impl == "auto":
-        return "pallas" if (not interpret and supported()) else "xla"
-    return impl
-
-
-def get_sort_impl() -> str:
-    return _SORT_IMPL
-
-
-def set_sort_impl_from_env() -> str:
-    """Apply the PHJ_SORT_IMPL env knob (benches); returns the active impl."""
-    import os
-
-    impl = os.environ.get("PHJ_SORT_IMPL", "xla")
-    if impl != "xla":
-        set_sort_impl(impl)
-    return _SORT_IMPL
-
-
-def _key_sort(keys: jax.Array, impl: str, interpret: bool = False) -> jax.Array:
-    """Unstable ascending 1-key int32 sort via the selected implementation."""
-    impl = resolve_sort_impl(impl, interpret)
-    if impl == "pallas":
-        from partitionedhashjoin_tpu.ops.pallas import bitonic_sort
-
-        return bitonic_sort.sort_i32(keys, interpret=interpret)
+def _key_sort(keys: jax.Array) -> jax.Array:
+    """Unstable ascending 1-key sort."""
     return jax.lax.sort((keys,), num_keys=1, is_stable=False)[0]
 
 
-def supported() -> bool:
-    """True when the Mosaic kernel path runs on the current backend."""
-    from partitionedhashjoin_tpu.ops.pallas import merge_count
+def sorted_position(a_sorted: jax.Array, q: jax.Array):
+    """(hit, idx): ``idx`` is the LOWEST position of ``q`` in ``a_sorted``
+    when ``hit`` (searchsorted side="left"), undefined otherwise."""
+    n = a_sorted.shape[0]
+    idx = jnp.searchsorted(a_sorted, q, side="left", method=SEARCH_METHOD)
+    idx = jnp.minimum(idx, n - 1).astype(jnp.int32)
+    return a_sorted[idx] == q, idx
 
-    return merge_count.supported()
+
+def _check_i32(fn_name: str, **arrays) -> None:
+    for name, arr in arrays.items():
+        dt = jnp.asarray(arr).dtype
+        if dt in (jnp.int64, jnp.uint64):
+            # never silently truncate 64-bit keys (distinct keys would
+            # collide and miscount) — same contract as hash_table._as_i32_keys
+            raise TypeError(
+                f"{fn_name} is the int32 path ({name} is {dt}); "
+                "use two_run_count_i64 for 64-bit keys"
+            )
 
 
 def two_run_count(
@@ -95,91 +74,55 @@ def two_run_count(
     probe_keys: jax.Array,
     build_valid=None,
     probe_valid=None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Get-semantics match count (number of valid probe rows whose key
     appears among valid build keys), int32 keys.
 
-    Equivalent to ops/sort_merge.py::sort_merge_count; this is the kernel
-    path.  int64 keys take the sort-merge fallback (the Mosaic kernel is
-    32-bit; ops/sort_merge.py handles 64-bit under x64).
-
-    In an x64 process the whole (all-int32) jit runs under x64-off:
-    Mosaic's lowering re-traces reductions under the global dtype config
-    and rejects the 64-bit converts that sneak in (see merge_probe).
+    Equivalent to ops/sort_merge.py::sort_merge_count.  int64 keys take
+    ``two_run_count_i64``.
     """
-    for name, arr in (("build_keys", build_keys), ("probe_keys", probe_keys)):
-        dt = jnp.asarray(arr).dtype
-        if dt in (jnp.int64, jnp.uint64):
-            # never silently truncate 64-bit keys (distinct keys would
-            # collide and miscount) — same contract as hash_table._as_i32_keys
-            raise TypeError(
-                f"two_run_count is the int32 path ({name} is {dt}); "
-                "use two_run_count_i64 for 64-bit keys"
-            )
-    if jax.config.jax_enable_x64:
-        from jax._src.config import enable_x64 as _enable_x64
-
-        with _enable_x64(False):
-            return _two_run_count(
-                jnp.asarray(build_keys, jnp.int32),
-                jnp.asarray(probe_keys, jnp.int32),
-                build_valid,
-                probe_valid,
-                interpret=interpret,
-            )
-    return _two_run_count(
-        build_keys, probe_keys, build_valid, probe_valid, interpret=interpret
-    )
-
-
-def _two_run_count(
-    build_keys: jax.Array,
-    probe_keys: jax.Array,
-    build_valid=None,
-    probe_valid=None,
-    interpret: bool = False,
-) -> jax.Array:
-    """Composed as _prepare_build_i32 + _probe_prepared_i32 so the INT32_MAX
-    validity-sentinel protocol lives in exactly one place (PreparedBuild
-    probes through the same two programs, so the compile cache is shared)."""
+    _check_i32("two_run_count", build_keys=build_keys, probe_keys=probe_keys)
     build_keys = jnp.asarray(build_keys, jnp.int32)
     probe_keys = jnp.asarray(probe_keys, jnp.int32)
     if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
         return jnp.asarray(0, jnp.int32)
+    # composed as _prepare_build_i32 + _probe_prepared_i32 so the INT32_MAX
+    # validity-sentinel protocol lives in exactly one place (PreparedBuild
+    # probes through the same two programs, so the compile cache is shared)
     a_sorted, max_in_a = _prepare_build_i32(
-        build_keys, build_valid, has_valid=build_valid is not None,
-        sort_impl=_SORT_IMPL, interpret=interpret,
+        build_keys, build_valid, has_valid=build_valid is not None
     )
     return _probe_prepared_i32(
-        a_sorted,
-        max_in_a,
-        probe_keys,
-        probe_valid,
+        a_sorted, max_in_a, probe_keys, probe_valid,
         has_valid=probe_valid is not None,
-        interpret=interpret,
-        sort_impl=_SORT_IMPL,
     )
 
 
-def sorted_runs_count(
-    a_sorted: jax.Array,
-    b_sorted: jax.Array,
-    interpret: bool = False,
-) -> jax.Array:
-    """Count over ALREADY-sorted runs (the pre-sorted merge primitive for
-    pipelined exchanges: sort the received build side once, then count each
-    newly sorted probe chunk against it without re-sorting)."""
-    return merge_probe.ranged_merge_count(a_sorted, b_sorted, interpret=interpret)
+def _plain_sorted_count(a_sorted, b_keys):
+    hit, _ = sorted_position(a_sorted, b_keys)
+    return jnp.sum(hit.astype(jnp.int32))
 
 
-@functools.partial(
-    jax.jit, static_argnames=("has_valid", "sort_impl", "interpret")
-)
-def _prepare_build_i32(
-    build_keys, build_valid=None, has_valid=False, sort_impl="xla",
-    interpret=False,
-):
+@jax.jit
+def sorted_runs_count(a_sorted: jax.Array, b_sorted: jax.Array) -> jax.Array:
+    """Count of probe rows whose key exists in the sorted build run — the
+    pre-sorted merge primitive (full key domain, int32 or int64; both runs
+    ascending).  int32 runs take the windowed Triton probe on the GPU and
+    the plain search elsewhere."""
+    if a_sorted.shape[0] == 0 or b_sorted.shape[0] == 0:
+        return jnp.asarray(0, jnp.int32)
+    if a_sorted.dtype != jnp.int32 or b_sorted.dtype != jnp.int32:
+        return _plain_sorted_count(a_sorted, b_sorted)
+    from partitionedhashjoin_tpu.ops import windowed_probe
+
+    return jax.lax.platform_dependent(
+        a_sorted, b_sorted,
+        cuda=windowed_probe.windowed_count, default=_plain_sorted_count,
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("has_valid",))
+def _prepare_build_i32(build_keys, build_valid=None, has_valid=False):
     build_keys = jnp.asarray(build_keys, jnp.int32)
     if has_valid:
         build_valid = jnp.asarray(build_valid, jnp.bool_)
@@ -188,18 +131,12 @@ def _prepare_build_i32(
     else:
         a_eff = build_keys
         max_in_a = jnp.any(build_keys == _I32_MAX)
-    return (
-        _key_sort(a_eff, sort_impl, interpret),
-        max_in_a,
-    )
+    return _key_sort(a_eff), max_in_a
 
 
-@functools.partial(
-    jax.jit, static_argnames=("has_valid", "interpret", "sort_impl")
-)
+@functools.partial(jax.jit, static_argnames=("has_valid",))
 def _probe_prepared_i32(
-    a_sorted, max_in_a, probe_keys, probe_valid=None,
-    has_valid=False, interpret=False, sort_impl="xla",
+    a_sorted, max_in_a, probe_keys, probe_valid=None, has_valid=False,
 ):
     probe_keys = jnp.asarray(probe_keys, jnp.int32)
     if has_valid:
@@ -211,9 +148,15 @@ def _probe_prepared_i32(
     else:
         b_eff = probe_keys
         n_max = jnp.sum((probe_keys == _I32_MAX).astype(jnp.int32))
-    b_sorted = _key_sort(b_eff, sort_impl, interpret)
-    count = merge_probe.ranged_merge_count_prepared(
-        a_sorted, b_sorted, exclude_int32_max=True, interpret=interpret
+    # the probe sort orders the searches so neighbouring queries read
+    # neighbouring build positions
+    b_sorted = _key_sort(b_eff)
+    # INT32_MAX rows (the invalid sentinel, or genuine) match iff the build
+    # run holds INT32_MAX; they are taken out here and the genuine matches
+    # restored in closed form
+    n_max_eff = jnp.sum((b_eff == _I32_MAX).astype(jnp.int32))
+    count = sorted_runs_count(a_sorted, b_sorted) - jnp.where(
+        a_sorted[-1] == _I32_MAX, n_max_eff, 0
     )
     return count + jnp.where(max_in_a, n_max, 0)
 
@@ -226,16 +169,12 @@ class PreparedBuild:
     object pays that sort (and the INT32_MAX bookkeeping) exactly once and
     serves any number of probes against it.
 
-    Supports int32 (Mosaic kernel path with validity masks) and int64
-    (hi/lo-plane kernel, requires x64; masks unsupported — rewrite keys on
-    the caller side).  Falls back identically on non-Mosaic backends via
-    ``interpret`` (tests) — probes there use the same kernel in interpreter
-    mode.
+    Supports int32 (with validity masks) and int64 (requires x64; masks
+    unsupported — rewrite keys on the caller side).
     """
 
-    def __init__(self, build_keys, build_valid=None, interpret=False):
+    def __init__(self, build_keys, build_valid=None):
         keys = jnp.asarray(build_keys)
-        self._interpret = interpret
         self._n = int(keys.shape[0])
         self._i64 = keys.dtype in (jnp.int64, jnp.uint64)
         if self._i64:
@@ -244,25 +183,12 @@ class PreparedBuild:
                     "validity masks are int32-path only; rewrite invalid "
                     "int64 keys before preparing the build"
                 )
-            self.a_sorted = jax.lax.sort(
-                (keys.astype(jnp.int64),), num_keys=1, is_stable=False
-            )[0]
+            self.a_sorted = _key_sort(keys.astype(jnp.int64))
             self.max_in_a = None
         else:
-            if jax.config.jax_enable_x64:
-                from jax._src.config import enable_x64 as _enable_x64
-
-                with _enable_x64(False):
-                    self.a_sorted, self.max_in_a = _prepare_build_i32(
-                        jnp.asarray(keys, jnp.int32), build_valid,
-                        has_valid=build_valid is not None,
-                        sort_impl=_SORT_IMPL, interpret=interpret,
-                    )
-            else:
-                self.a_sorted, self.max_in_a = _prepare_build_i32(
-                    keys, build_valid, has_valid=build_valid is not None,
-                    sort_impl=_SORT_IMPL, interpret=interpret,
-                )
+            self.a_sorted, self.max_in_a = _prepare_build_i32(
+                keys, build_valid, has_valid=build_valid is not None
+            )
 
     def count(self, probe_keys, probe_valid=None) -> jax.Array:
         """Get-semantics match count of this probe against the prepared
@@ -272,56 +198,31 @@ class PreparedBuild:
         if self._i64:
             if probe_valid is not None:
                 raise TypeError("validity masks are int32-path only")
-            b_sorted = jax.lax.sort(
-                (jnp.asarray(probe_keys, jnp.int64),),
-                num_keys=1, is_stable=False,
-            )[0]
-            return merge_probe.ranged_merge_count_i64(
-                self.a_sorted, b_sorted, interpret=self._interpret
+            return sorted_runs_count(
+                self.a_sorted, _key_sort(jnp.asarray(probe_keys, jnp.int64))
             )
-        args = (
+        return _probe_prepared_i32(
             self.a_sorted, self.max_in_a, probe_keys, probe_valid,
+            has_valid=probe_valid is not None,
         )
-        kw = dict(
-            has_valid=probe_valid is not None, interpret=self._interpret,
-            sort_impl=_SORT_IMPL,
-        )
-        if jax.config.jax_enable_x64:
-            from jax._src.config import enable_x64 as _enable_x64
-
-            with _enable_x64(False):
-                return _probe_prepared_i32(*args, **kw)
-        return _probe_prepared_i32(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
-# Materializing kernel join (engine extension; the reference materializes
+# Materializing two-run join (engine extension; the reference materializes
 # nothing — src/NoPartitioning/HashJoin.hpp:186 returns an empty table).
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "sort_impl", "probe_payload_sorted")
-)
+@functools.partial(jax.jit, static_argnames=("probe_payload_sorted",))
 def _materialize_i32(
     build_keys, build_payloads, probe_keys, probe_payloads,
-    interpret: bool = False, sort_impl: str = "xla",
     probe_payload_sorted: bool = False,
 ):
     def kv_sort(keys, pay, full_lex=False):
-        # unstable key sort carrying the payload; the pallas tuple sorter
-        # orders ties by payload (full-lex) — any tie order is acceptable
-        if resolve_sort_impl(sort_impl, interpret) == "pallas":
-            from partitionedhashjoin_tpu.ops.pallas import bitonic_sort
-
-            return bitonic_sort.sort_i32_tuple(
-                jnp.asarray(keys, jnp.int32), jnp.asarray(pay, jnp.int32),
-                interpret=interpret,
-            )
-        # full_lex: payload becomes a SECOND sort key, so output runs are
-        # payload-ascending within each key — what aggregate_sorted's
-        # payload_sorted fast path consumes.  Measured premium ~0.2 ns/el
-        # (unstable 2-key 3.1 vs key+value ~2.9, docs/PERFORMANCE.md).
+        # unstable key sort carrying the payload.  full_lex: the payload
+        # becomes a SECOND sort key, so output runs are payload-ascending
+        # within each key — what aggregate_sorted's payload_sorted fast
+        # path consumes
         return jax.lax.sort(
             (jnp.asarray(keys, jnp.int32), jnp.asarray(pay, jnp.int32)),
             num_keys=2 if full_lex else 1, is_stable=False,
@@ -331,26 +232,18 @@ def _materialize_i32(
     b_keys, b_pay = kv_sort(
         probe_keys, probe_payloads, full_lex=probe_payload_sorted
     )
-    pay_a, pos = merge_probe.ranged_merge_payload_prepared(
-        a_keys, a_pay, b_keys, interpret=interpret
-    )
-    hit = pos > 0
+    hit, idx = sorted_position(a_keys, b_keys)
+    pay_a = jnp.where(hit, a_pay[idx], 0)
     count = jnp.sum(hit.astype(jnp.int32))
-    return b_keys, pay_a, b_pay, pos, count
+    return b_keys, pay_a, b_pay, hit, count
 
 
 @jax.jit
-def _compact_hits(b_keys, pay_a, b_pay, pos, count):
-    from partitionedhashjoin_tpu.ops.filter import compact_sort
+def _compact_hits(b_keys, pay_a, b_pay, hit):
+    from partitionedhashjoin_tpu.ops.filter import compact
 
-    _, keys, pa, pb = compact_sort(pos > 0, b_keys, pay_a, b_pay)
-    live = jnp.arange(keys.shape[0], dtype=jnp.int32) < count
-    zero = jnp.int32(0)
-    return (
-        jnp.where(live, keys, zero),
-        jnp.where(live, pa, zero),
-        jnp.where(live, pb, zero),
-    )
+    _, keys, pa, pb = compact(hit, b_keys, pay_a, b_pay)
+    return keys, pa, pb
 
 
 def two_run_materialize(
@@ -358,79 +251,58 @@ def two_run_materialize(
     build_payloads: jax.Array,
     probe_keys: jax.Array,
     probe_payloads: jax.Array,
-    interpret: bool = False,
     probe_payload_sorted: bool = False,
 ):
-    """Materialized first-match inner join on the kernel path (int32).
+    """Materialized first-match inner join on the two-run path (int32).
 
     Output order is SORTED-KEY order (the engine's natural order after the
     two-run partition step), compacted to the front with a zero tail:
     returns ``(keys, pay_a, pay_b, count)``.  Among duplicate build keys
     the LOWEST sorted-A position wins (deterministic).  Differs from
     ``ops.sort_merge.sort_merge_materialize`` (probe-row order, latest
-    build row) — key order is what the kernel's sequential output grants;
-    callers needing probe order pay one more placement sort.
+    build row) — callers needing probe order pay one more placement sort.
 
-    Cost anatomy at 10M⋈200M (docs/PERFORMANCE.md): two value-carrying
-    sorts + the payload kernel; the compaction dispatch is SKIPPED when
-    every probe row matches (count readback decides), which is the common
+    Cost anatomy: two value-carrying sorts + one search and payload
+    gather; the compaction dispatch is SKIPPED when every probe row
+    matches (count readback decides), which is the common
     primary-key⋈foreign-key case.
 
     ``probe_payload_sorted=True`` makes the probe payload a SECOND sort
-    key (~0.2 ns/el premium), so output ``pay_b`` runs ascend within each
-    key — the order ``aggregate_sorted(payload_sorted=True)`` consumes for
-    a sort-free downstream GROUP BY (the composed-query plan,
-    scripts/bench_pipeline.py).  Stable-partition compaction preserves
-    the order in the non-all-match case.
+    key, so output ``pay_b`` runs ascend within each key — the order
+    ``aggregate_sorted(payload_sorted=True)`` consumes for a sort-free
+    downstream GROUP BY (the composed-query plan).  The stable compaction
+    preserves the order in the non-all-match case.
     """
-    for name, arr in (
-        ("build_keys", build_keys),
-        ("build_payloads", build_payloads),
-        ("probe_keys", probe_keys),
-        ("probe_payloads", probe_payloads),
-    ):
-        dt = jnp.asarray(arr).dtype
-        if dt in (jnp.int64, jnp.uint64):
-            raise TypeError(
-                f"two_run_materialize is the int32 path ({name} is {dt})"
-            )
+    _check_i32(
+        "two_run_materialize", build_keys=build_keys,
+        build_payloads=build_payloads, probe_keys=probe_keys,
+        probe_payloads=probe_payloads,
+    )
     n_b = jnp.asarray(probe_keys).shape[0]
     if jnp.asarray(build_keys).shape[0] == 0 or n_b == 0:
         z = jnp.zeros((n_b,), jnp.int32)
         return z, z, z, jnp.asarray(0, jnp.int32)
-
-    def call(fn, *args, **kw):
-        if jax.config.jax_enable_x64:
-            from jax._src.config import enable_x64 as _enable_x64
-
-            with _enable_x64(False):
-                return fn(*args, **kw)
-        return fn(*args, **kw)
-
-    b_keys, pay_a, b_pay, pos, count = call(
-        _materialize_i32, build_keys, build_payloads, probe_keys,
-        probe_payloads, interpret=interpret, sort_impl=_SORT_IMPL,
+    b_keys, pay_a, b_pay, hit, count = _materialize_i32(
+        build_keys, build_payloads, probe_keys, probe_payloads,
         probe_payload_sorted=probe_payload_sorted,
     )
     if int(jax.device_get(count)) == n_b:  # all-match: no compaction needed
         return b_keys, pay_a, b_pay, count
-    keys, pa, pb = call(_compact_hits, b_keys, pay_a, b_pay, pos, count)
+    keys, pa, pb = _compact_hits(b_keys, pay_a, b_pay, hit)
     return keys, pa, pb, count
 
 
-def two_run_count_i64(
-    build_keys: jax.Array,
-    probe_keys: jax.Array,
-    interpret: bool = False,
-) -> jax.Array:
-    """int64-key two-run count join (requires x64 mode): plane-pair path.
-    The reference's Tuple::id is int64 (src/Common/Table.hpp:20-25).
+@jax.jit
+def _count_i64(build_keys, probe_keys):
+    a_sorted = _key_sort(jnp.asarray(build_keys, jnp.int64))
+    b_sorted = _key_sort(jnp.asarray(probe_keys, jnp.int64))
+    return _plain_sorted_count(a_sorted, b_sorted)
 
-    Keys split once into (hi, lo_cmp) int32 planes (a trivial x64
-    dispatch); ONE x64-off program then runs the unstable 2-KEY plane
-    sorts (3.1 ns/el — cheaper than the two x64 int64 sorts of the
-    round-2 path), the lexicographic prep, and the hi/lo kernel.  See
-    merge_probe._count_i64_planes_full."""
-    return merge_probe.two_run_count_i64_planes(
-        build_keys, probe_keys, interpret=interpret
-    )
+
+def two_run_count_i64(build_keys: jax.Array, probe_keys: jax.Array) -> jax.Array:
+    """int64-key two-run count join (requires x64 mode).  The reference's
+    Tuple::id is int64 (src/Common/Table.hpp:20-25).  No sentinel is
+    involved, so the whole int64 domain is exact."""
+    if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
+        return jnp.asarray(0, jnp.int32)
+    return _count_i64(build_keys, probe_keys)

@@ -3,37 +3,40 @@
 The reference joins on a single int64 ``Tuple::id``
 (src/Common/Table.hpp:20-25); real query engines join on composite keys
 (ON a.k1 = b.k1 AND a.k2 = b.k2 ...).  This module generalizes the
-engine's two join counting paths to k int32 key columns:
+engine's join count to k int32 key columns:
 
-* ``k == 2`` rides the Mosaic plane kernel unchanged: the int64 path
-  (ops/pallas/merge_probe.py::_count_i64_planes_full) already joins on a
-  lexicographically sorted (hi, lo) int32 plane PAIR — a composite
-  2-column key in disguise.  Equality of (k1, k2) is exactly plane
-  equality, and any consistent total order is fine for counting, so the
-  planes are fed directly (no bit packing, no hashing, no collisions).
-* any ``k`` takes the generalized sort-merge path: ONE unstable
+* ``k == 1`` is the single-key two-run join (ops/merge_join.py).
+* any other ``k`` takes the generalized sort-merge path: ONE unstable
   (k+1)-operand lexicographic sort of the concatenated relations with a
   build-before-probe tie tag, then the same run-snapshot multiplicity
   scan as ops/sort_merge.py::_merged_multiplicity — tuple runs are
   delimited by "any column differs from the previous row".
 
 Exactness notes (the engine's non-negotiable): no column combination is
-ever hashed or packed, so there are no collisions by construction; the
-kernel path's INT32_MAX padding rows are (MAX, MAX, ...) tuples whose
-genuine occurrences are restored by the same closed-form correction the
-int64 path uses (merge_probe.py pad_correction).  64-bit columns are
-refused with a TypeError (never silently truncated) — split them into
-(hi, lo) planes with ops.pallas.merge_probe.split_i64 and pass both
-planes as columns: lexicographic plane order preserves exact equality.
+ever hashed or packed, so there are no collisions by construction.  64-bit
+columns are refused with a TypeError (never silently truncated) — split
+them into (hi, lo) planes with ``split_i64`` and pass both planes as
+columns: lexicographic plane order preserves exact equality.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
+
+
+def split_i64(x: jax.Array):
+    """(hi, lo_cmp) int32 planes of an int64 array (order-preserving):
+    hi = key >> 32 (signed), lo_cmp = (key & 0xFFFFFFFF) - 2^31, so the
+    int32 compare of lo_cmp is the unsigned compare of the low word and
+    (hi, lo_cmp) in lexicographic order is int64 order."""
+    hi = (x >> jnp.int64(32)).astype(jnp.int32)
+    lo_cmp = ((x & jnp.int64(0xFFFFFFFF)) - jnp.int64(1 << 31)).astype(
+        jnp.int32
+    )
+    return hi, lo_cmp
 
 
 def _check_columns(name: str, cols: Sequence[jax.Array]):
@@ -55,7 +58,7 @@ def _check_columns(name: str, cols: Sequence[jax.Array]):
             raise TypeError(
                 f"{name}[{i}] is {c.dtype}: 64-bit columns are refused; "
                 "split into (hi, lo_cmp) int32 planes via "
-                "ops.pallas.merge_probe.split_i64 and pass both planes"
+                "ops.multi_key.split_i64 and pass both planes"
             )
         if c.ndim != 1 or c.shape[0] != n:
             raise ValueError(
@@ -116,31 +119,14 @@ def _multi_key_count_all_xla(build_cols, probe_cols) -> jax.Array:
     return widesum.exact_sum_u64(jnp.where(is_probe, mult, 0))
 
 
-def _kernel_pair_count(build_cols, probe_cols, interpret: bool):
-    """k=2 kernel path: the int64 plane program with the two key columns
-    as the planes (x64-off for Mosaic's re-tracing, see merge_probe)."""
-    from jax._src.config import enable_x64 as _enable_x64
-
-    from partitionedhashjoin_tpu.ops import merge_join
-    from partitionedhashjoin_tpu.ops.pallas import merge_probe
-
-    with _enable_x64(False):
-        return merge_probe._count_i64_planes_full(
-            build_cols[0], build_cols[1], probe_cols[0], probe_cols[1],
-            interpret=interpret, sort_impl=merge_join.get_sort_impl(),
-        )
-
-
 def multi_key_count(
     build_cols: Sequence[jax.Array],
     probe_cols: Sequence[jax.Array],
-    interpret: bool = False,
 ) -> jax.Array:
     """Get-semantics composite-key count: number of probe rows whose FULL
     key tuple (column-wise equality over all k columns) appears among the
-    build rows.  ``k == 1`` is ops/merge_join.py::two_run_count; ``k == 2``
-    rides the Mosaic plane kernel; other k take the generalized
-    lexicographic sort-merge path."""
+    build rows.  ``k == 1`` is ops/merge_join.py::two_run_count; other k
+    take the generalized lexicographic sort-merge path."""
     build_cols = _check_columns("build_cols", build_cols)
     probe_cols = _check_columns("probe_cols", probe_cols)
     if len(build_cols) != len(probe_cols):
@@ -154,14 +140,7 @@ def multi_key_count(
     if k == 1:
         from partitionedhashjoin_tpu.ops import merge_join
 
-        return merge_join.two_run_count(
-            build_cols[0], probe_cols[0], interpret=interpret
-        )
-    if k == 2:
-        from partitionedhashjoin_tpu.ops.pallas import merge_count
-
-        if merge_count.supported() or interpret:
-            return _kernel_pair_count(build_cols, probe_cols, interpret)
+        return merge_join.two_run_count(build_cols[0], probe_cols[0])
     return _multi_key_count_xla(build_cols, probe_cols)
 
 

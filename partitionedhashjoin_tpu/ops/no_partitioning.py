@@ -1,6 +1,6 @@
 """No-partitioning hash join (Blanas SIGMOD'11, algorithm 1).
 
-TPU-native counterpart of src/NoPartitioning/HashJoin.hpp:14-187: one global
+Counterpart of src/NoPartitioning/HashJoin.hpp:14-187: one global
 hash table built over the whole build relation, then the probe relation is
 scanned against it, counting probe rows that find a match (``Get`` != null,
 HashJoin.hpp:144-157).  The reference parallelizes with thread batches over a
@@ -16,20 +16,21 @@ gathers the matched payload pairs.
 
 Two global-structure layouts (config.NoPartitioningConfiguration.mode):
 
-- ``"vmem"`` (default on TPU via ``"auto"``): the global structure is the
-  SORTED build run — an ordered dictionary instead of a hash table.  Build
-  = one unstable sort of A; probe = the VMEM merge-probe kernel
-  (ops/pallas/merge_probe.py), zero HBM gathers.  Still the Blanas shape:
-  no partitioning phase, ONE structure over the whole build side, the
-  probe streamed against it.
+- ``"vmem"``: the global structure is the SORTED build run — an ordered
+  dictionary instead of a hash table.  Build = one unstable sort of A;
+  probe = sort B, then one vectorized binary search per row against the
+  run (ops/merge_join.py), which a 10M-row build keeps resident in the
+  H100's L2.  Still the Blanas shape: no partitioning phase, ONE structure
+  over the whole build side, the probe streamed against it.  (The name is
+  historical: the structure no longer lives in a scratchpad.)
 - ``"chained"``: literal table analogue — chained-bucket hash table probed
-  by HBM gathers (~12 gathers/row at 7.6 ns each; 20-30x slower on TPU,
-  kept for structure parity and as the materialize/backend fallback).
+  by gathers, kept for structure parity and as the materialize path.
+
+``"auto"`` resolves to ``AUTO_MODE``, the faster of the two on the H100.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import jax
@@ -38,9 +39,12 @@ import jax.numpy as jnp
 from partitionedhashjoin_tpu.config import NoPartitioningConfiguration
 from partitionedhashjoin_tpu.data.table import JoinedTable, Table
 from partitionedhashjoin_tpu.ops import hash_table as ht
-from partitionedhashjoin_tpu.utils.device import sync
 from partitionedhashjoin_tpu.utils.logger import get_new_logger
 from partitionedhashjoin_tpu.utils.results import IHashJoinTimer, NoOpHashJoinTimer
+
+#: Mode that "auto" resolves to: the faster of the two at 10M ⋈ 200M on
+#: the H100 (PERF.md, path decisions).
+AUTO_MODE = "vmem"
 
 
 @jax.jit
@@ -85,12 +89,9 @@ class NoPartitioningHashJoiner:
         configuration: Optional[NoPartitioningConfiguration] = None,
         seed: Optional[int] = None,
         size_ratio: float = ht.DEFAULT_SIZE_RATIO,
-        interpret: bool = False,
     ) -> None:
         self._config = configuration or NoPartitioningConfiguration()
         self._size_ratio = size_ratio
-        #: run the Mosaic kernel in interpreter mode (CPU tests of "vmem")
-        self._interpret = interpret
         # Per-instance random hash seed (XXHasher.hpp:12-17 semantics), held
         # as a device scalar so seed changes never recompile the kernels.
         if seed is None:
@@ -105,19 +106,13 @@ class NoPartitioningHashJoiner:
         latched insert loop, HashJoin.hpp:76-126)."""
         num_buckets = ht.chained_num_buckets(table_a.size)
         table = ht.build_chained(table_a.keys, self._seed, num_buckets)
-        sync(table.entry_rows)
+        jax.block_until_ready(table.entry_rows)
         return table
 
     def _resolve_mode(self) -> str:
         mode = getattr(self._config, "mode", "auto")
         if mode == "auto":
-            from partitionedhashjoin_tpu.ops import merge_join
-
-            return (
-                "vmem"
-                if (merge_join.supported() or self._interpret)
-                else "chained"
-            )
+            return AUTO_MODE
         if mode not in ("vmem", "chained"):
             raise ValueError(f"unknown no-partitioning mode {mode!r}")
         return mode
@@ -153,22 +148,20 @@ class NoPartitioningHashJoiner:
         table_b: Table,
         timer: IHashJoinTimer,
     ) -> int:
-        """Sorted-run global structure + VMEM merge-probe kernel.
+        """Sorted-run global structure + binary-search probe.
 
         Phase mapping onto the reference timer (HashJoin.hpp:54-74): build
         = constructing the global lookup structure (here one unstable sort
         of A — merge_join.PreparedBuild); probe = streaming B against it
-        (sort B + per-block VMEM binary search, zero HBM gathers).  No
+        (sort B + one binary search per row).  No
         partitioning phase, matching the algorithm's name and the
         reference's timer (partition stays 0).
         """
         from partitionedhashjoin_tpu.ops import merge_join
 
         timer.set_build_phase_begin()
-        prepared = merge_join.PreparedBuild(
-            table_a.keys, interpret=self._interpret
-        )
-        sync(prepared.a_sorted)
+        prepared = merge_join.PreparedBuild(table_a.keys)
+        jax.block_until_ready(prepared.a_sorted)
         timer.set_build_phase_end()
 
         timer.set_probe_phase_begin()
@@ -181,8 +174,8 @@ class NoPartitioningHashJoiner:
             # masks are int32-path only — config.vmem_probe_chunk_rows doc)
             count = int(jax.device_get(prepared.count(table_b.keys)))
         else:
-            # dispatch-level chunking (the watchdog bound, CLAUDE.md): equal
-            # fixed-size windows so every chunk shares one compiled program;
+            # dispatch-level chunking (bounds one program's temporaries):
+            # equal fixed-size windows so every chunk shares one compiled program;
             # the last window ends at n and masks its overlap with the
             # previous one invalid.  Get-semantics counts are additive over
             # probe partitions, so summing chunk counts is exact.
@@ -214,7 +207,7 @@ class NoPartitioningHashJoiner:
         keys, pay_a, pay_b, count = _probe_gather(
             hash_tbl, table_b.keys, table_a.payloads, table_b.payloads
         )
-        sync(count)
+        jax.block_until_ready(count)
         timer.set_probe_phase_end()
         return JoinedTable(
             keys=keys, payloads_a=pay_a, payloads_b=pay_b, count=count

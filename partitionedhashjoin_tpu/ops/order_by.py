@@ -3,10 +3,9 @@
 Extended relational surface (the reference has no ordering operator — its
 closest analogue is the sorted output layout of the radix fan-out,
 src/RadixCluster/HashJoin.hpp:394-412, which is a partition artifact, not
-an operator).  TPU-native design notes:
+an operator).  Design notes:
 
-- full ORDER BY is one unstable value-carrying ``lax.sort`` — the engine's
-  cheapest relation-sized reorder (docs/PERFORMANCE.md primitive table);
+- full ORDER BY is one unstable value-carrying ``lax.sort``;
   descending order rides the same ascending sort through bitwise NOT
   (``~x`` is an order-REVERSING bijection on two's-complement ints, total
   on the full domain including INT_MIN, where ``-x`` would overflow);

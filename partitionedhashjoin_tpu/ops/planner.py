@@ -3,12 +3,12 @@ measured build-side statistics before dispatching the probe.
 
 The reference always runs the operator its flag selected (main.cpp:260-282
 switches on the CLI enum and nothing else).  A query engine sits one level
-up: it looks at the data first.  On TPU that planning layer is nearly free,
+up: it looks at the data first.  That planning layer is nearly free,
 because plan decisions are host-side branches BETWEEN XLA dispatches and
 the statistics come from the build sort the general join pays for anyway:
 
-1. Sort the build side (one unstable 1-key sort — 39 ms at 10M, and the
-   general two-run join needs exactly this sorted run as its input).
+1. Sort the build side (one unstable 1-key sort — the general two-run join
+   needs exactly this sorted run as its input).
 2. Read back three scalars: min, max, and ``covered`` — whether every
    integer in [min, max] occurs at least once (exact: sorted adjacent
    diffs all <= 1; duplicates allowed, Get-count semantics ignore them).
@@ -17,22 +17,18 @@ the statistics come from the build sort the general join pays for anyway:
    - **covered** (every benchmark primary-key relation has this shape —
      the reference generator emits 1..N sequential, DataGenerator/
      Sequential.cpp): membership(q) == (min <= q <= max), so the probe
-     collapses to ONE streaming compare+reduce — ~2 ms at 200M rows vs
-     ~490 ms of probe sort + kernel probe.  No hashing, no sort, no
-     gathers; exactness is unconditional because coverage was proven, not
-     sampled.
-   - otherwise: the general two-run kernel join (ops/merge_join.py),
-     REUSING the already-sorted build run (the stats pass costs nothing
-     extra); on backends without the Mosaic kernel, the XLA sort-merge
-     count (ops/sort_merge.py).
+     collapses to ONE streaming compare+reduce instead of a probe sort and
+     a search.  No hashing, no sort, no gathers; exactness is unconditional
+     because coverage was proven, not sampled.
+   - otherwise: the general two-run join (ops/merge_join.py), REUSING the
+     already-sorted build run (the stats pass costs nothing extra).
 
 The planner preserves Get semantics (each probe row counted once iff its
 key exists among build keys) bit-for-bit with every other joiner — see
 tests/test_planner.py's oracle and agreement cases, and the fuzz harness.
 
-int64 keys work end-to-end under x64: stats and the interval count are
-plain XLA (no Mosaic 32-bit limits), the general fallback routes to the
-hi/lo-plane kernel (merge_probe.ranged_merge_count_i64).
+int64 keys work end-to-end under x64: stats, the interval count and the
+two-run probe are dtype-generic.
 """
 
 from __future__ import annotations
@@ -124,30 +120,12 @@ def _plan(build_keys: jax.Array, probe_keys: jax.Array):
         hi = jnp.asarray(stats.key_max, dtype)
         return "interval", lambda: _interval_count(probe_keys, lo, hi)
 
-    if merge_join.supported():
-        from partitionedhashjoin_tpu.ops.pallas import merge_probe
+    def two_run_probe():
+        # reuse the sorted build run the stats pass produced
+        b_sorted = jax.lax.sort((probe_keys,), num_keys=1, is_stable=False)[0]
+        return merge_join.sorted_runs_count(a_sorted, b_sorted)
 
-        def kernel_probe():
-            # reuse the sorted build run the stats pass produced
-            b_sorted = jax.lax.sort(
-                (probe_keys,), num_keys=1, is_stable=False
-            )[0]
-            if dtype == jnp.int64:
-                return merge_probe.ranged_merge_count_i64(a_sorted, b_sorted)
-            if jax.config.jax_enable_x64:
-                # x64-off call guard, as in merge_join.two_run_count
-                from jax._src.config import enable_x64 as _enable_x64
-
-                with _enable_x64(False):
-                    return merge_probe.ranged_merge_count_prepared(
-                        a_sorted, b_sorted
-                    )
-            return merge_probe.ranged_merge_count_prepared(a_sorted, b_sorted)
-
-        return "kernel", kernel_probe
-    return "sort-merge", lambda: sort_merge.sort_merge_count(
-        build_keys, probe_keys
-    )
+    return "two-run", two_run_probe
 
 
 def planned_count(
@@ -155,8 +133,8 @@ def planned_count(
 ) -> tuple[jax.Array, str]:
     """Get-semantics match count via the cheapest applicable plan.
 
-    Returns (count, plan_name) with plan_name in {"interval", "kernel",
-    "sort-merge"} for observability/testing.
+    Returns (count, plan_name) with plan_name in {"interval", "two-run"}
+    for observability/testing.
     """
     if build_keys.shape[0] == 0 or probe_keys.shape[0] == 0:
         return jnp.asarray(0, jnp.int32), "interval"

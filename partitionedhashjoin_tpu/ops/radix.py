@@ -1,4 +1,4 @@
-"""Radix partitioning: histogram → prefix sum → scatter, TPU-native.
+"""Radix partitioning: histogram → prefix sum → scatter.
 
 Counterpart of the reference's 3-stage partition pipeline
 (src/RadixCluster/HashJoin.hpp:333-440): stage 1 builds per-worker histograms
@@ -6,7 +6,7 @@ of ``hash(key) % P`` (:343-357), stage 2 turns them into per-partition
 exclusive prefix sums / global boundaries (:360-390, PartitionsInfo :16-33),
 stage 3 scatters each tuple to ``boundary[p].start + cursor[p][w]++`` (:394-412).
 
-On TPU the per-worker cursor trick is a stable *rank within partition*; the
+Here the per-worker cursor trick is a stable *rank within partition*; the
 whole pipeline collapses to:
 
     pid       = hash(key) & (P-1)                  (stage 1's hash)
@@ -16,11 +16,11 @@ whole pipeline collapses to:
 
 A stable sort by an int32 partition id is exactly "scatter every row to its
 partition region preserving arrival order" — conflict-free by construction,
-like the reference's scatter, and it maps to XLA's native tiled sort instead
-of serialized random scatters.  ``radix_partition_padded`` additionally rounds
-each partition up to a block multiple so downstream Pallas kernels can walk
-fixed-size tiles that never straddle a partition boundary (the VMEM analogue
-of the reference's cache/TLB-conscious fan-out).
+like the reference's scatter, and it maps to XLA's native sort instead of
+serialized random scatters.  ``radix_partition_padded`` additionally rounds
+each partition up to a block multiple so downstream consumers can walk
+fixed-size tiles that never straddle a partition boundary (the analogue of
+the reference's cache/TLB-conscious fan-out).
 """
 
 from __future__ import annotations
@@ -104,8 +104,8 @@ def radix_partition_keys(
 
     The count-join path needs no payloads or row ids (dense partitioning has
     no padding), and dropping them shrinks the partition sort from four
-    operands to two — at 200M rows that halves peak HBM pressure (the
-    4-operand variant OOMs a 16GB v5e alongside the resident relations).
+    operands to two — at 200M rows that halves the sort's peak device
+    memory.
 
     ``passes > 1`` runs the multi-pass radix cluster (Manegold 2002 /
     Balkesen ICDE'13; the reference stays single-pass, SURVEY.md §3.4): LSD

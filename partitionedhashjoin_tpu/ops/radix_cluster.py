@@ -1,6 +1,6 @@
 """Radix-partitioning hash join (Blanas SIGMOD'11, algorithm 2).
 
-TPU-native counterpart of src/RadixCluster/HashJoin.hpp:91-440:
+Counterpart of src/RadixCluster/HashJoin.hpp:91-440:
 
 - **Partition phase** (HashJoin.hpp:333-440): both relations fanned out into P
   contiguous partitions by ``hash(key) & (P-1)`` — here the sort-based
@@ -14,7 +14,7 @@ TPU-native counterpart of src/RadixCluster/HashJoin.hpp:91-440:
   ALL per-partition builds collapse into ONE stable sort
   (ops/hash_table.py::build_chained_from_buckets); probes walk contiguous
   chains with windowed gathers, chunked per dispatch at scale —
-  partition-parallelism becomes lane-parallelism.
+  partition-parallelism becomes data parallelism.
 
 Match semantics are the reference's: each probe row counts once if its key
 exists in the same partition's build table (``Get`` != null, :295-301).
@@ -35,7 +35,6 @@ from partitionedhashjoin_tpu.config import RadixClusteringConfiguration
 from partitionedhashjoin_tpu.data.table import Table
 from partitionedhashjoin_tpu.ops import hash_table as ht
 from partitionedhashjoin_tpu.ops import radix
-from partitionedhashjoin_tpu.utils.device import sync
 from partitionedhashjoin_tpu.utils.logger import get_new_logger
 from partitionedhashjoin_tpu.utils.results import IHashJoinTimer, NoOpHashJoinTimer
 
@@ -44,6 +43,21 @@ from partitionedhashjoin_tpu.utils.results import IHashJoinTimer, NoOpHashJoinTi
 #: equal (main.cpp:215-217,267 uses two randomly seeded XXHashers).
 _PARTITION_SEED_MIX = 0x9E3779B9
 _BUCKET_SEED_MIX = 0x85EBCA6B
+
+#: Mode that "auto" resolves to: the faster of the two at 10M ⋈ 200M on
+#: the H100 (PERF.md, path decisions).
+AUTO_MODE = "vmem"
+
+
+@jax.jit
+def _sort_both(a, b):
+    """The vmem mode's fan-out: one program sorting both relations, like
+    the reference running both partition jobs concurrently on the pool
+    (HashJoin.hpp:210-213)."""
+    return (
+        jax.lax.sort((a,), num_keys=1, is_stable=False)[0],
+        jax.lax.sort((b,), num_keys=1, is_stable=False)[0],
+    )
 
 
 @functools.partial(jax.jit, static_argnames=("num_partitions", "passes"))
@@ -122,13 +136,12 @@ def _probe_phase(
     num_chunks: int = 1,
 ) -> jax.Array:
     """Chunked at the DISPATCH level, not with lax.map: each chunk is its own
-    XLA program.  One fused program walking 200M rows of probe chains runs
-    tens of seconds and trips the device watchdog ("TPU worker crashed");
-    separate dispatches bound both program runtime and temporaries.
+    XLA program, so separate dispatches bound both program runtime and
+    temporaries.
 
     Non-divisible ``n`` chunks via overlapping windows + a traced ``skip``
     mask (see ops/hash_table.py::probe_chained_count) — prime-sized probes
-    no longer collapse to one watchdog-tripping dispatch."""
+    no longer collapse to one relation-sized dispatch."""
     n = keys_b_part.shape[0]
     num_chunks = min(num_chunks, max(1, n))
     if num_chunks <= 1:
@@ -194,16 +207,14 @@ class RadixHashJoiner:
     ) -> int:
         """Partition both, build, probe, return count.
 
-        Mode "vmem" (the default on TPU via "auto") is range-radix
-        clustering + the VMEM merge-probe kernel; "chained" is the
-        reference-structured hash fan-out + chained tables (see
+        Mode "vmem" is range-radix clustering + a binary-search probe of
+        the sorted build run; "chained" is the reference-structured hash
+        fan-out + chained tables (see
         config.RadixClusteringConfiguration.mode).
         """
         mode = getattr(self._config, "mode", "auto")
         if mode == "auto":
-            from partitionedhashjoin_tpu.ops import merge_join
-
-            mode = "vmem" if merge_join.supported() else "chained"
+            mode = AUTO_MODE
         if mode == "vmem":
             return self._run_vmem(table_a, table_b, timer)
         if mode != "chained":
@@ -219,7 +230,7 @@ class RadixHashJoiner:
             p,
             passes=self._config.partition_passes,
         )
-        sync((keys_a_part, keys_b_part))
+        jax.block_until_ready((keys_a_part, keys_b_part))
         timer.set_partitioning_phase_end()
 
         num_buckets = ht.segmented_capacity(table_a.size, p, ratio=1.0)
@@ -228,7 +239,7 @@ class RadixHashJoiner:
             keys_a_part, hist_a, self._part_seed, self._bucket_seed,
             num_buckets, p,
         )
-        sync(chained.entry_rows)
+        jax.block_until_ready(chained.entry_rows)
         timer.set_build_phase_end()
 
         timer.set_probe_phase_begin()
@@ -252,7 +263,8 @@ class RadixHashJoiner:
         table_b: Table,
         timer: Optional[IHashJoinTimer] = None,
     ) -> int:
-        """Range-radix + VMEM merge-probe (ops/pallas/merge_probe.py).
+        """Range-radix + binary-search probe of the sorted build run
+        (ops/merge_join.py).
 
         Phase mapping onto the reference timer (HashJoin.hpp:190-241):
 
@@ -260,39 +272,21 @@ class RadixHashJoiner:
           IS range-radix clustering — every partition is a contiguous key
           range, laid out contiguously, exactly what the reference's scatter
           produces per hash partition (:394-412).  ``number_of_partitions``
-          is advisory here: the probe kernel ranges every 64K-row probe
-          block individually, a finer fan-out than any practical P.
+          is advisory here: the search ranges every probe key individually,
+          a finer fan-out than any practical P.
         - build: nothing to build — the sorted build side IS the lookup
-          structure (the kernel's tiled relayout costs ~1 ms at 10M rows
-          and is attributed to the probe program that consumes it).
-        - probe: per-block build ranges DMA'd to VMEM, in-register binary
-          search (zero HBM gathers; the chained mode pays ~12 HBM gathers
-          per row, docs/PERFORMANCE.md).
+          structure.
+        - probe: one vectorized binary search per probe row; the sorted
+          probe order makes neighbouring searches read neighbouring build
+          positions, and a 10M-row build run stays resident in L2.
         """
         from partitionedhashjoin_tpu.ops import merge_join
 
         timer = timer or NoOpHashJoinTimer()
 
-        @functools.partial(jax.jit, static_argnames=("sort_impl",))
-        def sort_both(a, b, sort_impl="xla"):
-            # one program for both fan-outs, like the reference running both
-            # partition jobs concurrently on the pool (HashJoin.hpp:210-213)
-            if sort_impl == "pallas" and a.dtype == jnp.int32:
-                from partitionedhashjoin_tpu.ops.pallas import bitonic_sort
-
-                return (
-                    bitonic_sort.sort_i32(a),
-                    bitonic_sort.sort_i32(b),
-                )
-            return (
-                jax.lax.sort((a,), num_keys=1, is_stable=False)[0],
-                jax.lax.sort((b,), num_keys=1, is_stable=False)[0],
-            )
-
-        # int64 keys route to the hi/lo-plane kernel; int32 to the plain
-        # one.  Never a silent cast: truncation would make distinct 64-bit
-        # keys collide (round-2 review; same contract as hash_table's
-        # _as_i32_keys, which the chained mode inherits).
+        # int64 keys keep their width: truncation would make distinct
+        # 64-bit keys collide (round-2 review; same contract as
+        # hash_table's _as_i32_keys, which the chained mode inherits).
         a_keys = jnp.asarray(table_a.keys)
         b_keys = jnp.asarray(table_b.keys)
         wide = (jnp.int64, jnp.uint64)
@@ -300,36 +294,17 @@ class RadixHashJoiner:
         dtype = jnp.int64 if use_i64 else jnp.int32
 
         timer.set_partitioning_phase_begin()
-        # the Pallas sorter needs a Mosaic backend AND a non-x64 trace
-        # (Mosaic re-traces under the global dtype config — see
-        # merge_probe); int64 keys, x64 processes, and non-Mosaic backends
-        # keep the XLA sort here (round-3 review: a leaked engine-wide
-        # 'pallas' switch must fall back, not crash, on CPU)
-        impl = (
-            merge_join.resolve_sort_impl(merge_join.get_sort_impl())
-            if (
-                merge_join.supported()
-                and not use_i64
-                and not jax.config.jax_enable_x64
-            )
-            else "xla"
+        a_sorted, b_sorted = _sort_both(
+            a_keys.astype(dtype), b_keys.astype(dtype)
         )
-        a_sorted, b_sorted = sort_both(
-            a_keys.astype(dtype), b_keys.astype(dtype), sort_impl=impl
-        )
-        sync((a_sorted, b_sorted))
+        jax.block_until_ready((a_sorted, b_sorted))
         timer.set_partitioning_phase_end()
 
         timer.set_build_phase_begin()
         timer.set_build_phase_end()
 
         timer.set_probe_phase_begin()
-        if use_i64:
-            count = merge_join.merge_probe.ranged_merge_count_i64(
-                a_sorted, b_sorted
-            )
-        else:
-            count = merge_join.sorted_runs_count(a_sorted, b_sorted)
+        count = merge_join.sorted_runs_count(a_sorted, b_sorted)
         count = int(jax.device_get(count))
         timer.set_probe_phase_end()
         self._logger.info("Number of joined tuples: %d", count)

@@ -7,13 +7,12 @@ algorithm, and ``radix_sort_table`` generalizes it to a full ordering.
 
 Two entry points:
 
-- ``sort_table``: one-shot key sort via ``jax.lax.sort`` — XLA's native tiled
-  TPU sort; the production default.
+- ``sort_table``: one-shot key sort via ``jax.lax.sort`` — XLA's native sort
+  (a one-key sort goes to the GPU's radix sort); the production default.
 - ``radix_sort_table``: LSD radix sort, ``32 / bits_per_pass`` stable passes
   over digit histograms.  Each pass is the partition pipeline (digit extract →
   stable reorder); digit reordering currently rides the same XLA stable sort
-  primitive (8-bit comparator), with the Pallas histogram+scan+scatter kernel
-  as the planned upgrade.  Signed keys are handled by biasing the top digit
+  primitive (8-bit comparator).  Signed keys are handled by biasing the top digit
   (two's-complement order == unsigned order of ``key ^ 0x80000000``).
 """
 

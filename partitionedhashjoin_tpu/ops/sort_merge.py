@@ -1,21 +1,13 @@
-"""Sort-merge count join — the single-chip speed-of-light path.
+"""Sort-merge count join — the single-device count path.
 
 The reference's probe is a latched pointer-chase (src/NoPartitioning/
-HashJoin.hpp:144-157) because CPUs love caches; on TPU, measured primitive
-costs (v5e, HBM-resident int32) are:
-
-    random gather   ~7.6 ns/element (table-size independent — no cache help)
-    stable sort     ~4.2 ns/element (XLA's tiled sort)
-    streaming ops   ~0.01 ns/element
-
-so any probe that gathers per-row loses to one that sorts + streams.  This
-operator implements the join count with one sort and a few scans:
+HashJoin.hpp:144-157) because CPUs love caches.  This module implements the
+join count with sorts and streaming scans only, no hash table:
 
 1. Concatenate ``[build_keys; probe_keys]``.
 2. Unstable 2-key sort on (key, probe-tag): the comparator itself puts every
    build row *before* the equal-keyed probe rows, so each equal-key run is
-   [builds..., probes...] — and dropping stability is ~20% faster than a
-   stable 1-key sort.
+   [builds..., probes...] without a stable sort.
 3. Per-position build multiplicity of the current key =
    ``cumsum(is_build) - (that cumsum at the run start)``; the run-start
    snapshot propagates by ``cummax`` (snapshots are non-decreasing).
@@ -26,14 +18,10 @@ operator implements the join count with one sort and a few scans:
 ``valid`` masks support bucketized/padded inputs (parallel/shuffle.py).
 SURVEY.md §7 step 3 sanctions exactly this design ("sorted-merge ... instead
 of pointer-chasing HashTables"); the hash-table path (ops/no_partitioning.py)
-remains for materialization and as the general fallback.
+remains for materialization and as the structure-parity join.
 
-Measured single chip (TPU v5e, 10M⋈200M int32): 531 ms ≈ 376M probe rows/s
-end-to-end on the joiner's kernel fast path (two unstable 1-key sorts + the
-VMEM merge-probe kernel, ops/merge_join.py) — 2.25× the reference's best
-total (167M rows/s at P=2048 on 8C/16T Ryzen, BASELINE.md); the
-concatenated 2-key sort + merge-count path in this module (the dtype- and
-backend-generic fallback) measures 690 ms (1.73×).
+``SortMergeJoiner.count`` runs whichever of this concatenated form and the
+two-run join (ops/merge_join.py) measured faster on the H100 (PERF.md).
 """
 
 from __future__ import annotations
@@ -78,7 +66,7 @@ def _merged_multiplicity(build_keys, probe_keys, build_valid, probe_valid):
         ]
     )
     # unstable 2-key sort: ties beyond (key, build-tag) are interchangeable
-    # for counting, and dropping stability is ~20% faster (see fast path)
+    # for counting, so stability buys nothing
     keys_s, tag_s, valid_s = jax.lax.sort(
         (keys, ~is_build, valid), num_keys=2, is_stable=False
     )
@@ -121,9 +109,7 @@ def sort_merge_count(
         probe_keys = jnp.asarray(probe_keys, dtype)
         keys = jnp.concatenate([build_keys, probe_keys])
         # tag participates in the comparator (num_keys=2): builds (False)
-        # order before equal-keyed probes (True) WITHOUT stability — the
-        # unstable 2-key sort measures ~20% faster than the stable 1-key
-        # sort at 210M rows (650 vs 812 ms on v5e)
+        # order before equal-keyed probes (True) WITHOUT stability
         is_probe_tag = jnp.concatenate(
             [jnp.zeros((n_a,), jnp.bool_), jnp.ones((n_b,), jnp.bool_)]
         )
@@ -131,20 +117,10 @@ def sort_merge_count(
             (keys, is_probe_tag), num_keys=2, is_stable=False
         )
         is_build_s = ~tag_s
-        from partitionedhashjoin_tpu.ops.pallas import merge_count as mc
-
-        if dtype == jnp.int32 and mc.supported():
-            # fused Pallas streaming pass (one kernel for the scans)
-            count = mc.merge_count_sorted(keys_s, is_build_s)
-        else:
-            masked = jnp.where(is_build_s, keys_s, kmin)
-            last_build = jax.lax.cummax(masked)
-            hit = (
-                (~is_build_s)
-                & (last_build == keys_s)
-                & (keys_s != kmin)
-            )
-            count = jnp.sum(hit.astype(jnp.int32))
+        masked = jnp.where(is_build_s, keys_s, kmin)
+        last_build = jax.lax.cummax(masked)
+        hit = (~is_build_s) & (last_build == keys_s) & (keys_s != kmin)
+        count = jnp.sum(hit.astype(jnp.int32))
         # correction: probe keys equal to the dtype minimum match iff any
         # build key is
         min_in_build = jnp.any(build_keys == kmin)
@@ -217,14 +193,11 @@ def _match_probe_rows(build_keys, probe_keys, build_payloads=None,
     no compaction pass, no sentinel keys (exact over the full int32/int64
     key domain).
 
-    Movement-wise everything rides sorts and streaming scans (primitive
-    table, docs/PERFORMANCE.md): the round-2 formulation paid a
-    relation-sized gather (``row_s[last_build_pos]``, ~17 ns/el) plus two
-    relation-sized scatter-sets (8.6 ns/el each) for placement; build
-    row/payload now propagate by an O(n)-work ``associative_scan``
-    forward-fill and return to probe-row order through one value-carrying
-    sort.  Passing ``build_payloads`` carries the matched payload through
-    the same two sorts, replacing the payload gather as well.
+    Movement-wise everything rides sorts and streaming scans: build
+    row/payload propagate by an O(n)-work ``associative_scan`` forward-fill
+    and return to probe-row order through one value-carrying sort.
+    Passing ``build_payloads`` carries the matched payload through the same
+    two sorts instead of a relation-sized gather.
     """
     n_a = build_keys.shape[0]
     n_b = probe_keys.shape[0]
@@ -286,7 +259,7 @@ def _match_probe_rows(build_keys, probe_keys, build_payloads=None,
 
     def _ffill(vals):
         # propagate the last build row's value forward: O(n) work, no
-        # relation-sized gather (c.f. row_s[cummax(pos)] at ~17 ns/el)
+        # relation-sized gather
         return jax.lax.associative_scan(
             lambda a, b: (
                 jnp.where(b[1], b[0], a[0]),
@@ -442,9 +415,8 @@ def _materialize_typed(
         keep = ~hit if pv is None else (~hit & pv)
     else:
         keep = hit
-    # stable compaction via one 2-key value-carrying sort (~8 ns/el for 4
-    # columns vs 8.6 ns/el PER scatter-set column with ``compact``), then
-    # an explicit zero tail to keep the padded contract
+    # stable compaction via one 2-key value-carrying sort, then an explicit
+    # zero tail to keep the padded contract
     count, keys_out, pay_a, pay_b, matched = compact_sort(
         keep,
         jnp.asarray(probe_keys),
@@ -517,24 +489,15 @@ class SortMergeJoiner:
 
     @staticmethod
     def count(build_keys, probe_keys) -> jax.Array:
-        """Fastest available count path for the current backend/dtype.
-
-        int32 on a Mosaic backend: the two-run kernel join (one UNstable
-        1-key sort per relation + the VMEM merge-probe kernel,
-        ops/merge_join.py — measured ~25% faster than the concatenated
-        2-key sort it replaces, and the kernel probe replaces the XLA scan
-        passes).  Otherwise (CPU tests, int64 keys): the concatenated
-        sort + scan path above.
-        """
+        """The flagship count: the two-run join (one sort per relation +
+        a binary-search probe, ops/merge_join.py), int32 or int64 keys.
+        It measured faster than the concatenated 2-key sort + cummax form
+        above at 10M ⋈ 200M on the H100 (PERF.md, path decisions)."""
         from partitionedhashjoin_tpu.ops import merge_join
 
-        if merge_join.supported():
-            if _key_dtype(build_keys, probe_keys) == jnp.int32:
-                return merge_join.two_run_count(build_keys, probe_keys)
-            if jax.config.jax_enable_x64:
-                # int64 keys: the hi/lo-plane kernel variant
-                return merge_join.two_run_count_i64(build_keys, probe_keys)
-        return sort_merge_count(build_keys, probe_keys)
+        if _key_dtype(build_keys, probe_keys) == jnp.int64:
+            return merge_join.two_run_count_i64(build_keys, probe_keys)
+        return merge_join.two_run_count(build_keys, probe_keys)
 
     def run_materialize(
         self,
@@ -552,12 +515,11 @@ class SortMergeJoiner:
 
         ``order`` selects the output row order:
         - "probe" (default): probe-row order, latest-build-row match — the
-          XLA scan path (works on every backend/dtype).
+          scan path (every join type and key dtype).
         - "key": sorted-key order, lowest-sorted-position match — the
-          kernel fast path (merge_join.two_run_materialize; int32 + Mosaic
-          backends, "inner" only), which skips the placement sort AND the
-          compaction dispatch when every probe row matches.  At relation
-          scale this is the path to use; see docs/PERFORMANCE.md.
+          two-run path (merge_join.two_run_materialize; int32 keys, "inner"
+          only), which skips the placement sort AND the compaction
+          dispatch when every probe row matches.
         """
         from partitionedhashjoin_tpu.data.table import JoinedTable
         from partitionedhashjoin_tpu.ops import merge_join
@@ -571,16 +533,11 @@ class SortMergeJoiner:
         if order == "key":
             if join_type != "inner":
                 raise ValueError(
-                    "order='key' (the kernel path) supports inner joins; "
+                    "order='key' (the two-run path) supports inner joins; "
                     "use order='probe' for semi/anti/left"
                 )
-            if not (
-                merge_join.supported()
-                and _key_dtype(table_a.keys, table_b.keys) == jnp.int32
-            ):
-                raise ValueError(
-                    "order='key' needs a Mosaic backend and int32 keys"
-                )
+            if _key_dtype(table_a.keys, table_b.keys) != jnp.int32:
+                raise ValueError("order='key' needs int32 keys")
             keys, pay_a, pay_b, count = merge_join.two_run_materialize(
                 table_a.keys, table_a.payloads,
                 table_b.keys, table_b.payloads,

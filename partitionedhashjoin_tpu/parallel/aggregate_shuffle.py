@@ -176,7 +176,7 @@ def _aggregate_exchange(
         g = _sort_group_and_aggregate(
             keys[0], pays[0], cap_local,
             valid=valid[0], has_valid=True,
-            kernel_compaction=False, sort_impl="xla",
+            scatter_compaction=False,
         )
         # exact need, not a flag: one retry then lands the right capacity
         local_need = g.num_groups
@@ -478,7 +478,7 @@ def _row_exchange_aggregate(
         g = _sort_group_and_aggregate(
             rk, rp, cap_groups,
             valid=rv, has_valid=True,
-            kernel_compaction=False, sort_impl="xla",
+            scatter_compaction=False,
             with_distinct=True,
         )
         return (

@@ -122,7 +122,7 @@ def _join_aggregate_local(
         g = _sort_group_and_aggregate(
             keys, pays, cap_local,
             valid=valid, has_valid=True,
-            kernel_compaction=False, sort_impl="xla",
+            scatter_compaction=False,
         )
         local_need = g.num_groups
         slot = jnp.arange(cap_local, dtype=jnp.int32)

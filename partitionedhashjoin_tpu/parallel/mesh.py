@@ -2,10 +2,11 @@
 
 The reference scales with a fixed-size thread pool over shared memory
 (src/Common/ThreadPool.cpp:9-34, ``hardware_concurrency() - 1`` workers,
-src/main.cpp:235-241).  The TPU-native scaling unit is a
-``jax.sharding.Mesh`` over chips: ``shard_map`` programs replace worker
-threads, collectives over ICI/DCN replace the shared-memory queue.  A single
-1-D ``"shards"`` axis is the analogue of the worker count.
+src/main.cpp:235-241).  Here the scaling unit is a ``jax.sharding.Mesh``
+over devices: ``shard_map`` programs replace worker threads, collectives
+(NCCL over NVLink between the GPUs of a host) replace the shared-memory
+queue.  A single flat 1-D ``"shards"`` axis is the analogue of the worker
+count; it assumes no topology, which suits NVLink's all-to-all links.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Distributed composite-key count join over the device mesh.
 
-Extends the shuffle join (parallel/shuffle.py — the TPU scale-out form of
+Extends the shuffle join (parallel/shuffle.py — the mesh scale-out form of
 the reference's shared-memory radix scatter, src/RadixCluster/HashJoin.hpp:
 394-412) to MULTI-COLUMN keys (ops/multi_key.py): rows are hash-sharded by
 their FULL key tuple (all equal tuples land on one shard, so per-shard
@@ -159,8 +159,8 @@ class MultiKeyShuffleJoiner:
     def run_i64(self, build_keys: jax.Array, probe_keys: jax.Array) -> int:
         """int64 single-key distributed count via the two-plane recipe
         (requires jax x64 to split): exact — lexicographic plane equality
-        IS int64 equality (ops/pallas/merge_probe.py::split_i64)."""
-        from partitionedhashjoin_tpu.ops.pallas.merge_probe import split_i64
+        IS int64 equality (ops/multi_key.py::split_i64)."""
+        from partitionedhashjoin_tpu.ops.multi_key import split_i64
 
         ah, al = split_i64(build_keys)
         bh, bl = split_i64(probe_keys)

@@ -2,17 +2,18 @@
 
 The reference is single-process: its "shuffle" is the radix scatter into
 shared memory (src/RadixCluster/HashJoin.hpp:394-412) and its "workers" are
-threads (src/Common/ThreadPool.cpp).  The TPU-native scale-out counterpart
+threads (src/Common/ThreadPool.cpp).  The mesh scale-out counterpart
 (SURVEY.md §2 "Distributed communication backend", §7 step 6):
 
 1. **Exchange (partition phase).**  Inside ``shard_map``, every shard assigns
    each local row an owner shard ``hash(key) % S``, bucketizes rows into an
    ``(S, C)`` send tensor (stable sort by destination — the same conflict-free
    rank+scatter as ops/radix.py), and swaps buckets with ``lax.all_to_all``
-   over ICI.  Bucket capacity ``C`` is static (XLA needs static shapes where
-   the reference used data-dependent ``PartitionsInfo`` boundaries): ``C =
-   ceil(local_rows / S * slack)``; dropped rows are *counted* and surfaced,
-   and the driver retries with doubled slack so results are always exact.
+   (NCCL over NVLink on a GPU host).  Bucket capacity ``C`` is static (XLA
+   needs static shapes where the reference used data-dependent
+   ``PartitionsInfo`` boundaries): ``C = ceil(local_rows / S * slack)``;
+   dropped rows are *counted* and surfaced, and the driver retries with
+   doubled slack so results are always exact.
 2. **Skew / heavy-hitter handling (the EP analogue).**  Zipf heads break
    hash-sharding — at α=1.25 one key is ~21% of the probe relation, so its
    owner shard would receive ~S× the average bucket.  A sample-based plan
@@ -40,9 +41,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from partitionedhashjoin_tpu.data.table import Table
 from partitionedhashjoin_tpu.ops import hash_table as ht
-from partitionedhashjoin_tpu.ops import hashing
+from partitionedhashjoin_tpu.ops import hashing, merge_join
 from partitionedhashjoin_tpu.parallel.mesh import SHARD_AXIS
-from partitionedhashjoin_tpu.utils.device import sync
 from partitionedhashjoin_tpu.utils.logger import get_new_logger
 from partitionedhashjoin_tpu.utils.results import IHashJoinTimer, NoOpHashJoinTimer
 
@@ -66,13 +66,12 @@ def _bucketize(dest, valid, capacity: int, num_shards: int, *columns):
     a bucket's capacity are dropped and counted (any drop triggers a
     larger-slack retry in the driver, so which rows drop is irrelevant).
 
-    Streaming by design (measured costs, docs/PERFORMANCE.md): one UNstable
-    sort by destination (~2-4 ns/el; extra operands nearly free) makes each
-    destination's rows contiguous, segment boundaries come from a binary
-    search of the S destination ids over the sorted array (O(S log n)
-    gathers), and the spread into capacity-strided buckets is S contiguous
-    ``dynamic_slice``s per column — nothing pays the 8.6-11.7 ns/el
-    scatter cost a per-row placement would.
+    Streaming by design: one UNstable sort by destination (extra operands
+    ride as values) makes each destination's rows contiguous, segment
+    boundaries come from a binary search of the S destination ids over the
+    sorted array (O(S log n) gathers), and the spread into capacity-strided
+    buckets is S contiguous ``dynamic_slice``s per column — no per-row
+    scatter.
     """
     d = jnp.where(valid, dest, num_shards)  # invalid -> dump segment
     sorted_cols = jax.lax.sort(
@@ -109,9 +108,8 @@ def _bucketize(dest, valid, capacity: int, num_shards: int, *columns):
 def _member_of_small(keys, small_keys, small_valid):
     """Per-row membership in a tiny key set: a fused broadcast-compare loop
     (|small| streaming passes over ``keys``) instead of a hashed-gather
-    probe — each XLA gather costs 7.6 ns/row while a fused compare pass is
-    effectively free, so for |small| ≲ 100 this wins by an order of
-    magnitude on relation-sized ``keys``."""
+    probe: for |small| ≲ 100 the fused compare passes stream ``keys`` once
+    per entry with no per-row gather."""
 
     def body(j, acc):
         return acc | (small_valid[j] & (keys == small_keys[j]))
@@ -393,36 +391,28 @@ def _pipelined_probe(
     pipelined against the local join (BASELINE "exchange overlapped with
     probe").  The scan body issues the NEXT chunk's ``all_to_all`` before
     counting the CURRENT chunk; the collective has no data dependence on the
-    count, so XLA's async collective scheduling can overlap them on ICI.
+    count, so XLA's async collective scheduling can overlap them.
 
     Chunk c takes the c-th CONTIGUOUS block of every bucket.  Buckets are
     static-capacity, so each chunk moves exactly cap_b/K rows per shard pair
     regardless of where the valid rows sit — chunk loads are even by
     construction.  (A round-robin rank striping would be equivalent but
-    needs a (S, C/K, K) array whose minor dim of K pads to 128 lanes on
-    TPU — a 128/K× HBM inflation that OOMs at relation scale.)
+    needs a (S, C/K, K) array with the small chunk count as its minor
+    dimension, a layout that pads badly on tiled-memory devices.)
 
     The received build side is sorted ONCE before the chunk scan; each
-    chunk then counts against the pre-sorted run (sort the chunk + the
-    ranged merge-probe kernel on TPU — ops/merge_join.py's INT32_MAX mask
-    protocol).  Backends without the Mosaic kernel fall back to the
-    concatenated sort-merge per chunk, which re-sorts the build side K
-    times (~5% extra sort work per chunk at the reference's 1:20 ratio).
+    chunk then counts against the pre-sorted run by one vectorized
+    searchsorted (``_searchsorted_counter``, ops/merge_join.py's INT32_MAX
+    mask protocol).
     """
-    from partitionedhashjoin_tpu.ops import merge_join
-
     eff_valid = _effective_hot_valid(
         use_hot, hot_plan_keys, hot_plan_valid, hot_repl_keys, hot_repl_valid
     )
-    use_kernel = merge_join.supported()
-    i32_max = jnp.iinfo(jnp.int32).max
-
     def local(rka, rva, bkb, bvb, kb, ihb, hpk, hpv):
         num_shards = jax.lax.axis_size(SHARD_AXIS)
         k_chunks = num_chunks
         # (S*C) -> (S, K, C//K): chunk k = k-th contiguous block per bucket.
-        # The chunk axis must NOT be minor: a minor dim of K pads to 128
-        # lanes on TPU (s32[S, C//K, K] allocates 128/K x the data)
+        # The chunk axis is not minor, so no layout pads it
         bkb3 = bkb.reshape(num_shards, k_chunks, cap_b // k_chunks)
         bvb3 = bvb.reshape(num_shards, k_chunks, cap_b // k_chunks)
 
@@ -431,31 +421,10 @@ def _pipelined_probe(
                 x, SHARD_AXIS, split_axis=0, concat_axis=0
             )
 
-        if use_kernel:
-            # pre-sorted merge primitive: invalid rows -> INT32_MAX, one
-            # UNstable sort, kernel ranges exclude the INT32_MAX region
-            a_eff = jnp.where(rva, rka, i32_max)
-            a_sorted = jax.lax.sort((a_eff,), num_keys=1, is_stable=False)[0]
-            max_in_a = jnp.any(rva & (rka == i32_max))
-
-            def chunk_count(rk, rv):
-                b_eff = jnp.where(rv, rk, i32_max)
-                b_sorted = jax.lax.sort(
-                    (b_eff,), num_keys=1, is_stable=False
-                )[0]
-                cnt = merge_join.merge_probe.ranged_merge_count_prepared(
-                    a_sorted, b_sorted, exclude_int32_max=True
-                )
-                n_max = jnp.sum((rv & (rk == i32_max)).astype(jnp.int32))
-                return cnt + jnp.where(max_in_a, n_max, 0)
-
-        else:
-            # pre-sorted fallback (CPU mesh tests): sort the received build
-            # side ONCE, then count each chunk by one vectorized
-            # searchsorted — the round-2 fallback re-sorted A inside every
-            # chunk (K x the build sort; at 1:4 ratios that tripled the
-            # pipelined path's work and buried any overlap signal)
-            chunk_count = _searchsorted_counter(rka, rva)
+        # sort the received build side ONCE, then count each chunk by one
+        # vectorized searchsorted (re-sorting A inside every chunk would
+        # cost K x the build sort)
+        chunk_count = _searchsorted_counter(rka, rva)
 
         first = (a2a(bkb3[:, 0, :]), a2a(bvb3[:, 0, :]))
 
@@ -517,23 +486,26 @@ def _searchsorted_member(rka, rva):
     )
 
     def member(q):
-        idx = jnp.searchsorted(a_sorted, q, side="left")
-        idxc = jnp.minimum(idx, a_sorted.shape[0] - 1)
-        hit = (a_sorted[idxc] == q) & (idx < limit)
-        return hit | (max_in_a & (q == i32_max))
+        hit, idx = merge_join.sorted_position(a_sorted, q)
+        return (hit & (idx < limit)) | (max_in_a & (q == i32_max))
 
     return member
 
 
 def _searchsorted_counter(rka, rva):
-    """Pre-sorted membership counter for non-Mosaic backends: count a
-    valid-masked probe batch against the build set.  Shared by the
-    one-shot and pipelined local joins so their comparison isolates
-    exchange structure, not local-join algorithm."""
-    member = _searchsorted_member(rka, rva)
+    """Pre-sorted membership counter: the build set sorted ONCE (the
+    two-run join's INT32_MAX mask protocol), each valid-masked probe batch
+    then sorted and counted against it (the windowed probe on the GPU).
+    Shared by the one-shot and pipelined local joins so their comparison
+    isolates exchange structure, not local-join algorithm."""
+    a_sorted, max_in_a = merge_join._prepare_build_i32(
+        rka, rva, has_valid=True
+    )
 
     def count(rk, rv):
-        return jnp.sum((rv & member(rk)).astype(jnp.int32))
+        return merge_join._probe_prepared_i32(
+            a_sorted, max_in_a, rk, rv, has_valid=True
+        )
 
     return count
 
@@ -558,20 +530,13 @@ def _sort_merge_local_count(
 
     Replaces separate build/probe programs — the sort subsumes the build, so
     the shuffle join's post-exchange cost is one sort of the shard-local
-    rows, mirroring the single-chip flagship (the two-run kernel join on
-    TPU, the concatenated sort-merge elsewhere)."""
-    from partitionedhashjoin_tpu.ops import merge_join
-
+    rows, mirroring the single-device two-run join."""
     eff_valid = _effective_hot_valid(
         use_hot, hot_plan_keys, hot_plan_valid, hot_repl_keys, hot_repl_valid
     )
-    use_kernel = merge_join.supported()
 
     def local(rka, rva, rkb, rvb, kb, ihb, hpk, hpv):
-        if use_kernel:
-            count = merge_join.two_run_count(rka, rkb, rva, rvb)
-        else:
-            count = _searchsorted_counter(rka, rva)(rkb, rvb)
+        count = _searchsorted_counter(rka, rva)(rkb, rvb)
         if use_hot:
             found_hot = ihb & _member_of_small(kb, hpk, hpv)
             count = count + jnp.sum(found_hot.astype(jnp.int32))
@@ -735,9 +700,11 @@ class DistributedShuffleJoiner:
             # every shuffle engine short-circuits).  Hot-key replication
             # is likewise a no-op — there is no imbalance to spread.
             # Disable via single_shard_fast_path=False to measure the
-            # exchange machinery itself (results/tpu-v5e/shuffle.txt).
-            from partitionedhashjoin_tpu.ops import merge_join
-            from partitionedhashjoin_tpu.ops.sort_merge import sort_merge_count
+            # exchange machinery itself.
+            from partitionedhashjoin_tpu.ops.sort_merge import (
+                SortMergeJoiner,
+                sort_merge_count,
+            )
 
             timer.set_partitioning_phase_begin()
             timer.set_partitioning_phase_end()
@@ -750,17 +717,12 @@ class DistributedShuffleJoiner:
                 or jnp.asarray(table_b.keys).dtype in wide
             )
             masked = valid_a is not None or valid_b is not None
-            if merge_join.supported() and not i64:
+            if not masked:
+                count = SortMergeJoiner.count(table_a.keys, table_b.keys)
+            elif not i64:
                 count = merge_join.two_run_count(
                     table_a.keys, table_b.keys,
                     build_valid=valid_a, probe_valid=valid_b,
-                )
-            elif merge_join.supported() and jax.config.jax_enable_x64 and not masked:
-                # int64 keys route to the plane kernel, mirroring
-                # SortMergeJoiner.count (round-3 review: two_run_count now
-                # refuses 64-bit keys rather than truncating)
-                count = merge_join.two_run_count_i64(
-                    table_a.keys, table_b.keys
                 )
             else:
                 count = sort_merge_count(
@@ -891,7 +853,7 @@ class DistributedShuffleJoiner:
                 slot_keys, slot_rows, max_probes = _build_local_tables(
                     self._mesh, rk_a, rv_a, self._bucket_seed, table_size
                 )
-                sync(slot_rows)
+                jax.block_until_ready(slot_rows)
                 timer.set_build_phase_end()
 
                 timer.set_probe_phase_begin()

@@ -4,8 +4,8 @@ The reference hard-wires exactly one pipeline into its driver — generate →
 join → count (src/main.cpp:210-293); every operator composition is a code
 change.  This module is the engine extension that turns the operator set
 into a composable query engine: logical plans built with a fluent API, a
-rule-based physical planner, EXPLAIN output, and execution on one chip or
-a device mesh.
+rule-based physical planner, EXPLAIN output, and execution on one device
+or a device mesh.
 
     from partitionedhashjoin_tpu.query import scan
 
@@ -18,21 +18,20 @@ a device mesh.
     print(q.explain())
     top = q.execute()                       # GroupByResult, 10 rows
 
-Physical rewrite rules (each measured in docs/PERFORMANCE.md):
+Physical rewrite rules:
 
   R1  count-only queries never materialize: ``.count()`` on a join plan
-      routes to the count kernels with filters as validity masks.
+      routes to the count joins with filters as validity masks.
   R2  filters never materialize an intermediate: predicates become
       validity masks that ride the downstream sorts (typed-materializer
-      ``build_valid``/``probe_valid``, count-kernel masks, aggregate
+      ``build_valid``/``probe_valid``, count-join masks, aggregate
       validity).  Only a standalone trailing filter pays a compaction.
-  R3  interesting-order propagation: JOIN → GROUP BY asks the kernel
+  R3  interesting-order propagation: JOIN → GROUP BY asks the two-run
       materializer for (key, payload)-ordered runs and aggregates with
-      the relation sort skipped (``aggregate_sorted``) — measured 125M
-      rows/s vs 76M for the re-sorting plan (scripts/bench_pipeline.py).
+      the relation sort skipped (``aggregate_sorted``).
   R4  GROUP BY → ORDER BY … LIMIT k rides ``lax.top_k`` over the group
       columns — no relation-sized sort for small k.
-  R5  filter → GROUP BY stages a Pallas block compaction first so the
+  R5  filter → GROUP BY stages a scatter compaction first so the
       aggregate's sort touches only surviving rows
       (``filter_sort_aggregate_staged``).
   R6  the same logical plan executes on a ``jax.sharding.Mesh``: GROUP BY
@@ -44,11 +43,11 @@ Physical rewrite rules (each measured in docs/PERFORMANCE.md):
       join exchange co-partitions the groups;
       parallel/join_aggregate.py).  Filters push into the exchange
       bucketizer everywhere — invalid rows never travel.
-  R7  filtered JOIN → GROUP BY composes R5 with R3: block-compact the
-      filtered probe, re-key invalid rows to opposite sentinels
-      (probe INT32_MAX, build INT32_MIN — they can never match), and run
-      the plain kernel pipeline on the survivors; int32-extreme inputs
-      fall back to the typed path at runtime.
+  R7  filtered JOIN → GROUP BY composes R5 with R3: compact the filtered
+      probe, re-key invalid rows to opposite sentinels (probe INT32_MAX,
+      build INT32_MIN — they can never match), and run the two-run
+      pipeline on the survivors; int32-extreme inputs fall back to the
+      typed path at runtime.
 
 Everything here is host-side planning; all device work happens inside the
 operator modules this planner dispatches to.
@@ -300,30 +299,28 @@ class Query:
 
     # -- terminals ----------------------------------------------------------
 
-    def execute(self, mesh=None, interpret: bool = False):
+    def execute(self, mesh=None):
         """Run the plan.  Returns a ``GroupByResult`` for group-stage
         plans, a ``JoinedTable`` for a bare join, else a ``TableResult``.
         ``mesh``: execute on a jax.sharding.Mesh via the distributed
         operators (R6; see docs/PARITY.md for mesh-plan coverage)."""
-        plan = _compile(self._node, _Ctx(mesh=mesh, interpret=interpret))
+        plan = _compile(self._node, _Ctx(mesh=mesh))
         return plan.run()
 
-    def count(self, mesh=None, interpret: bool = False) -> int:
+    def count(self, mesh=None) -> int:
         """Row count of the plan's result, without materializing when a
-        count kernel exists (R1)."""
-        plan = _compile_count(self._node, _Ctx(mesh=mesh, interpret=interpret))
+        count join exists (R1)."""
+        plan = _compile_count(self._node, _Ctx(mesh=mesh))
         return int(jax.device_get(plan.run()))
 
     def aggregate(
         self,
         with_distinct: bool = False,
         mesh=None,
-        interpret: bool = False,
     ) -> ScalarAggResult:
         """Whole-relation aggregates (SQL's SELECT SUM(...) without
         GROUP BY): COUNT/SUM/MIN/MAX of the payload over the plan's
-        valid rows in ONE streaming pass (streaming is ~free on this
-        chip, docs/PERFORMANCE.md primitive table) — plus one
+        valid rows in ONE streaming pass — plus one
         validity-dominant 2-key sort when ``with_distinct``.  SUM
         follows the engine-wide mod-2^32 int32 law (same as every
         GROUP BY path), so relation-scale sums WRAP and ``mean()`` is
@@ -339,18 +336,16 @@ class Query:
                 "change a scalar aggregate; drop the order_by/limit)"
             )
         steps: list = []
-        inner = _exec_table(
-            self._node, _Ctx(mesh=mesh, interpret=interpret), steps
-        )
+        inner = _exec_table(self._node, _Ctx(mesh=mesh), steps)
         t = inner()
         return _scalar_aggregate(
             t.pays, t.effective_mask(), with_distinct
         )
 
-    def explain(self, mesh=None, interpret: bool = False) -> str:
+    def explain(self, mesh=None) -> str:
         """The physical plan as text, one operator per line, with the
         rewrite rule each line rides (R1-R6 in the module docstring)."""
-        ctx = _Ctx(mesh=mesh, interpret=interpret)
+        ctx = _Ctx(mesh=mesh)
         plan = _compile(self._node, ctx)
         head = (
             f"physical plan [mesh S={int(mesh.devices.size)}]"
@@ -374,7 +369,6 @@ def scan(table: Table) -> Query:
 @dataclasses.dataclass
 class _Ctx:
     mesh: object = None
-    interpret: bool = False
 
 
 @dataclasses.dataclass
@@ -383,12 +377,9 @@ class _Plan:
     run: Callable[[], object]
 
 
-def _kernel_ok(keys_dtype, ctx: _Ctx) -> bool:
-    from partitionedhashjoin_tpu.ops import merge_join
-
-    return keys_dtype == jnp.int32 and (
-        ctx.interpret or merge_join.supported()
-    )
+def _two_run_ok(keys_dtype) -> bool:
+    """The two-run join and materializer are the int32 path."""
+    return keys_dtype == jnp.int32
 
 
 def _exec_table(node, ctx: _Ctx, steps: list) -> Callable[[], _T]:
@@ -905,7 +896,7 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
     if isinstance(child, _Filter):
         inner = _exec_table(child.child, ctx, steps)
         steps.append(
-            "filter + group_by -> staged Pallas block-compaction filter, "
+            "filter + group_by -> staged scatter-compaction filter, "
             "aggregate sorts only survivors (R5)"
         )
         pred = child.predicate
@@ -932,7 +923,6 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
                 make_table(t.keys, t.pays),
                 lambda k, p: mask,
                 group_capacity=cap,
-                interpret=ctx.interpret,
                 with_distinct=wd,
             )
             return g
@@ -955,14 +945,12 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
                 make_table(t.keys, t.pays),
                 lambda k, p: mask,
                 group_capacity=cap,
-                interpret=ctx.interpret,
                 with_distinct=wd,
             )
             return g
         return sort_aggregate(
             make_table(t.keys, t.pays),
             group_capacity=cap,
-            interpret=ctx.interpret,
             with_distinct=wd,
         )
 
@@ -972,30 +960,30 @@ def _exec_group(node: _GroupBy, ctx: _Ctx, steps: list):
 def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
     """R3: join → group_by without a second relation sort.
 
-    The kernel materializer emits key-ordered (optionally payload-ordered)
+    The two-run materializer emits key-ordered (optionally payload-ordered)
     runs, so the aggregate skips its pass-1 sort entirely.  Conditions for
-    the kernel path: inner join, int32 columns, no filters on either side
-    (the Mosaic kernel has no validity protocol — docs/PERFORMANCE.md);
-    otherwise the typed materializer (key-ordered? NO — probe-row order)
-    feeds the sorting aggregate with the joined rows' validity mask."""
+    the two-run path: inner join, int32 columns, no filters on either side
+    (the materializer has no validity protocol); otherwise the typed
+    materializer (probe-row order) feeds the sorting aggregate with the
+    joined rows' validity mask."""
     build, probe = _exec_join_sides(join, ctx, steps)
     carry = join.carry
     cap = gb.group_capacity
     wd = gb.with_distinct
-    kernel = (
+    two_run = (
         join.join_type == "inner"
         and _join_is_plain(join)
-        and _kernel_ok(_scan_dtype(join.probe), ctx)
-        and _kernel_ok(_scan_dtype(join.build), ctx)
+        and _two_run_ok(_scan_dtype(join.probe))
+        and _two_run_ok(_scan_dtype(join.build))
     )
-    if kernel:
+    if two_run:
         steps.append(
-            "join[inner] + group_by -> kernel materializer emits "
+            "join[inner] + group_by -> two-run materializer emits "
             "(key, payload)-ordered runs; aggregate_sorted skips the "
             "relation sort (R3)"
         )
 
-        def run_kernel():
+        def run_two_run():
             from partitionedhashjoin_tpu.ops.aggregate import aggregate_sorted
             from partitionedhashjoin_tpu.ops.merge_join import (
                 two_run_materialize,
@@ -1004,7 +992,6 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
             b, p = build(), probe()
             keys, pa, pb, count = two_run_materialize(
                 b.keys, b.pays, p.keys, p.pays,
-                interpret=ctx.interpret,
                 # carry=="build": pay_a is constant within a key run
                 # (first-match), so runs are trivially payload-ordered
                 probe_payload_sorted=(carry == "probe"),
@@ -1014,12 +1001,11 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
                 make_table(keys, pays),
                 group_capacity=cap,
                 n_valid=count,
-                interpret=ctx.interpret,
                 payload_sorted=True,
                 with_distinct=wd,
             )
 
-        return run_kernel
+        return run_two_run
 
     jt = join.join_type
 
@@ -1042,7 +1028,6 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
             make_table(keys, pays),
             lambda k, v: live,
             group_capacity=cap,
-            interpret=ctx.interpret,
             with_distinct=wd,
         )
         return g
@@ -1051,15 +1036,14 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
         jt == "inner"
         and _mesh_side_ok(join.build)
         and _mesh_side_ok(join.probe)
-        and _kernel_ok(_scan_dtype(join.probe), ctx)
-        and _kernel_ok(_scan_dtype(join.build), ctx)
-        and not jax.config.jax_enable_x64
+        and _two_run_ok(_scan_dtype(join.probe))
+        and _two_run_ok(_scan_dtype(join.build))
     )
     if staged:
         # R7 = R5 ∘ R3: stage the filters OUT of the join instead of
         # masking the typed materializer.  The probe filter pays one
-        # Pallas block-compaction pass (no relation sort), invalid rows
-        # re-key to sentinels, and the plain kernel pipeline then runs
+        # scatter compaction (no relation sort), invalid build rows
+        # re-key to a sentinel, and the two-run pipeline then runs
         # on the survivors — its sorts scale with selectivity and the
         # GROUP BY stays sort-free (aggregate_sorted).  The two sides
         # use OPPOSITE sentinels (probe→INT32_MAX, build→INT32_MIN) so
@@ -1068,22 +1052,22 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
         # collide with a sentinel, so such inputs take the typed path
         # (one fused reduction to check).
         steps.append(
-            "join[inner] + group_by -> staged: Pallas block-compaction "
+            "join[inner] + group_by -> staged: scatter compaction "
             "of the filtered probe, invalid rows re-keyed to opposite "
-            "sentinels, kernel materializer + aggregate_sorted on the "
+            "sentinels, two-run materializer + aggregate_sorted on the "
             "survivors (R7 = R5∘R3; int32-extreme keys fall back to the "
             "typed path)"
         )
 
         def run_staged():
             from partitionedhashjoin_tpu.ops.aggregate import (
-                _staged_filter,
                 aggregate_sorted,
+                staged_slice_size,
             )
+            from partitionedhashjoin_tpu.ops.filter import compact
             from partitionedhashjoin_tpu.ops.merge_join import (
                 two_run_materialize,
             )
-            from partitionedhashjoin_tpu.ops.pallas.bitonic_sort import BLK
 
             b, p = build(), probe()
             i32max = jnp.iinfo(jnp.int32).max
@@ -1109,29 +1093,21 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
             )
             if p_em is not None:
                 n = p.keys.shape[0]
-                aligned_total, pos, keys_c, pay_c = _staged_filter(
-                    p.keys, p.pays, p_em, interpret=ctx.interpret
-                )
-                total = int(jax.device_get(aligned_total))
-                # bucketed static slice, ≤17 program shapes (the staged
-                # aggregate's dispatch idiom, filter_sort_aggregate_staged)
-                chunk = max(BLK, -(-(n // 16) // BLK) * BLK)
-                size = min(max(-(-total // chunk) * chunk, BLK), pos.shape[0])
-                pos_s = jax.lax.slice_in_dim(pos, 0, size)
+                total, keys_c, pay_c = compact(p_em, p.keys, p.pays)
+                total = int(jax.device_get(total))
+                # bucketed static slice (the staged aggregate's dispatch
+                # idiom, filter_sort_aggregate_staged)
+                size = staged_slice_size(n, total)
                 keys_s = jax.lax.slice_in_dim(keys_c, 0, size)
                 pay_s = jax.lax.slice_in_dim(pay_c, 0, size)
-                # alignment sentinels (pos<0) and the undefined tail
-                # (>= aligned_total) re-key to INT32_MAX: they match
-                # nothing, so the materializer drops them for free
-                valid = (pos_s >= 0) & (
-                    jnp.arange(size, dtype=jnp.int32) < aligned_total
-                )
+                # the tail past the survivors re-keys to INT32_MAX: it
+                # matches nothing, so the materializer drops it for free
+                valid = jnp.arange(size, dtype=jnp.int32) < total
                 keys_s = jnp.where(valid, keys_s, i32max)
             else:
                 keys_s, pay_s = p.keys, p.pays
             keys, pa, pb, count = two_run_materialize(
                 bk, b.pays, keys_s, pay_s,
-                interpret=ctx.interpret,
                 probe_payload_sorted=(carry == "probe"),
             )
             pays = pb if carry == "probe" else pa
@@ -1139,7 +1115,6 @@ def _exec_join_group(join: _Join, gb: _GroupBy, ctx: _Ctx, steps: list):
                 make_table(keys, pays),
                 group_capacity=cap,
                 n_valid=count,
-                interpret=ctx.interpret,
                 payload_sorted=True,
                 with_distinct=wd,
             )
@@ -1360,7 +1335,7 @@ def _count_join(node: _Join, ctx: _Ctx, steps: list):
 
     build, probe = _exec_join_sides(node, ctx, steps)
     steps.append(
-        f"count join[{jt}] -> count kernel with validity masks, "
+        f"count join[{jt}] -> two-run count with validity masks, "
         "nothing materialized (R1)"
     )
 
@@ -1375,12 +1350,11 @@ def _count_join(node: _Join, ctx: _Ctx, steps: list):
         b_em, p_em = b.effective_mask(), p.effective_mask()
 
         def match_count():
-            if _kernel_ok(b.keys.dtype, ctx) and _kernel_ok(
-                p.keys.dtype, ctx
+            if _two_run_ok(b.keys.dtype) and _two_run_ok(
+                p.keys.dtype
             ):
                 return two_run_count(
-                    b.keys, p.keys, build_valid=b_em, probe_valid=p_em,
-                    interpret=ctx.interpret,
+                    b.keys, p.keys, build_valid=b_em, probe_valid=p_em
                 )
             return sort_merge_count(
                 b.keys, p.keys, build_valid=b_em, probe_valid=p_em

@@ -1057,13 +1057,10 @@ def explain_sql(
     tables: "dict[str, Table]",
     mesh=None,
     group_capacity=None,
-    interpret: bool = False,
 ) -> str:
     """Physical plan of the statement (query.py EXPLAIN, rules R1-R7)."""
     try:
-        return plan_sql(sql, tables, group_capacity).explain(
-            mesh=mesh, interpret=interpret
-        )
+        return plan_sql(sql, tables, group_capacity).explain(mesh=mesh)
     except PlanError as e:  # unsupported mesh plan shapes etc.
         raise SqlError(str(e)) from e
 
@@ -1072,7 +1069,6 @@ def execute_sql(
     sql: str,
     tables: "dict[str, Table]",
     mesh=None,
-    interpret: bool = False,
     group_capacity=None,
 ) -> SqlResult:
     """Parse, plan, and run a statement.  ``tables`` maps FROM/JOIN names
@@ -1090,20 +1086,16 @@ def execute_sql(
         try:
             q, project, _ = _build_plan(stmt, tables, group_capacity)
             if project == "count":
-                # show the COUNT plan (R1 kernels), not the row plan the
+                # show the COUNT plan (R1 count joins), not the row plan the
                 # same Query would materialize
                 head = (
                     f"physical plan [mesh S={int(mesh.devices.size)}]"
                     if mesh is not None else "physical plan [single device]"
                 )
-                plan = _compile_count(
-                    q._node, _Ctx(mesh=mesh, interpret=interpret)
-                )
+                plan = _compile_count(q._node, _Ctx(mesh=mesh))
                 lines = [head] + [f"  {s}" for s in plan.steps]
             else:
-                lines = q.explain(
-                    mesh=mesh, interpret=interpret
-                ).splitlines()
+                lines = q.explain(mesh=mesh).splitlines()
                 if isinstance(project, tuple) and project[0] == "scalar":
                     lines.append(
                         "  aggregate -> streaming scalar reductions "
@@ -1119,13 +1111,11 @@ def execute_sql(
         if is_empty:
             return project()
         if project == "count":
-            c = q.count(mesh=mesh, interpret=interpret)
+            c = q.count(mesh=mesh)
             return SqlResult({"count": np.asarray([c])}, 1)
         if isinstance(project, tuple) and project[0] == "scalar":
             _, names, wd = project
-            r = q.aggregate(
-                with_distinct=wd, mesh=mesh, interpret=interpret
-            )
+            r = q.aggregate(with_distinct=wd, mesh=mesh)
             src = {
                 "count": r.count, "sum": r.sum, "min": r.min,
                 "max": r.max, "avg": r.mean(),
@@ -1136,7 +1126,7 @@ def execute_sql(
                 nm: np.asarray([jax.device_get(src[nm])]) for nm in names
             }
             return SqlResult(cols, 1)
-        raw = q.execute(mesh=mesh, interpret=interpret)
+        raw = q.execute(mesh=mesh)
     except PlanError as e:
         raise SqlError(str(e)) from e
     return project(raw)
@@ -1194,7 +1184,8 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--platform", default=None,
-        help="jax platform override (e.g. cpu); tpu by default",
+        help="jax platform override (e.g. cpu); JAX's default device "
+        "otherwise",
     )
     ap.add_argument(
         "--mesh", type=int, default=0, metavar="S",
@@ -1211,6 +1202,11 @@ def main(argv=None) -> int:
     ap.add_argument("sql", help="the statement")
     ns = ap.parse_args(argv)
 
+    from partitionedhashjoin_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     if ns.platform:
         jax.config.update("jax_platforms", ns.platform)
 

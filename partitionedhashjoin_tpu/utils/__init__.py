@@ -1,5 +1,5 @@
 """Cross-cutting infrastructure: logging, results/timing, RNG, errors.
 
-TPU-native counterpart of the reference's src/Common/ infra layer (L1 in
+Counterpart of the reference's src/Common/ infra layer (L1 in
 SURVEY.md §1).
 """

@@ -1,6 +1,6 @@
 """Severity logging with component / tableID attributes.
 
-TPU-native counterpart of the reference's Boost.Log setup
+Counterpart of the reference's Boost.Log setup
 (src/Common/Logger.hpp:9-35, src/Common/Logger.cpp:73-125): a stderr sink with
 a global severity filter and the record format
 ``component(severity) (HH:MM:SS.ffffff) tableID: message``.

@@ -1,10 +1,10 @@
 """Host-side task runtime: thread pool + staged pipeline.
 
-TPU-native counterpart of the reference's L2 task runtime
+Counterpart of the reference's L2 task runtime
 (src/Common/IThreadPool.hpp:25-49, src/Common/ThreadPool.*).  On the device
 side the runtime is XLA — a jitted program is the staged pipeline — but the
 host side still needs one for ingest/IO orchestration (feeding device
-transfers while the chip computes, writing results, driving sweeps).  The
+transfers while the device computes, writing results, driving sweeps).  The
 heavy lifting for generation itself lives in the native C++ pool
 (native/phj_host.cpp); this Python layer provides the reference's *API
 shape* for arbitrary host tasks:

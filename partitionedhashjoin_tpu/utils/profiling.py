@@ -1,29 +1,40 @@
 """Tracing and roofline accounting.
 
-TPU-native counterpart of the reference's profiling story (SURVEY.md §5):
-the reference has manual phase timers plus an acknowledged TODO for CPU
+Counterpart of the reference's profiling story (SURVEY.md §5): the
+reference has manual phase timers plus an acknowledged TODO for CPU
 cache-miss counters (Readme.md:66-67).  Here:
 
 - ``trace(...)``: a ``jax.profiler`` trace context producing TensorBoard/
-  Perfetto traces of device execution (the TPU answer to hardware counters).
-- ``roofline(...)``: HBM-bandwidth roofline accounting for a phase — the
-  engine's kernels are memory-bound, so achieved-GB/s over peak-GB/s is the
-  speed-of-light fraction (BASELINE.json targets >= 70% on probe).
+  Perfetto traces of device execution.
+- ``roofline(...)``: device-memory roofline accounting for a phase — the
+  engine's kernels are memory-bound, so achieved GB/s over the device's
+  peak GB/s is the speed-of-light fraction.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator
 
-#: Peak HBM bandwidth per chip, GB/s.  v5e ("TPU v5 lite") ~ 819 GB/s.
+#: Peak device-memory bandwidth, GB/s, keyed by ``jax.Device.device_kind``.
+#: H100 SXM: 80 GB HBM3 at 3.35 TB/s (NVIDIA H100 data sheet).  A device
+#: that is not listed is an error, never a default.
 HBM_PEAK_GBPS = {
-    "v5e": 819.0,
-    "v5p": 2765.0,
-    "v4": 1228.0,
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
-DEFAULT_CHIP = "v5e"
+
+
+def peak_gbps(device_kind: str) -> float:
+    """Peak memory bandwidth of ``device_kind``; raises for an unknown
+    device."""
+    try:
+        return HBM_PEAK_GBPS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak bandwidth recorded for device kind {device_kind!r}; "
+            "add it to utils/profiling.HBM_PEAK_GBPS with its source"
+        ) from None
 
 
 @contextlib.contextmanager
@@ -60,32 +71,16 @@ class RooflineReport:
         )
 
 
-def roofline(
-    seconds: float, bytes_moved: int, chip: str = DEFAULT_CHIP
-) -> RooflineReport:
-    """Bandwidth roofline for a measured phase.
+def roofline(seconds: float, bytes_moved: int, device_kind: str) -> RooflineReport:
+    """Bandwidth roofline for a measured phase on ``device_kind``.
 
-    ``bytes_moved`` is the algorithmic HBM traffic (reads + writes of live
-    arrays); callers compute it from shapes, e.g. a 210M-row 2-operand sort
-    moves ~2 * passes * 210M * 5 bytes.
+    ``bytes_moved`` is the algorithmic device-memory traffic (reads +
+    writes of live arrays), computed by the caller from shapes.
     """
-    peak = HBM_PEAK_GBPS.get(chip, HBM_PEAK_GBPS[DEFAULT_CHIP])
     achieved = bytes_moved / max(seconds, 1e-12) / 1e9
     return RooflineReport(
         seconds=seconds,
         bytes_moved=bytes_moved,
         achieved_gbps=achieved,
-        peak_gbps=peak,
+        peak_gbps=peak_gbps(device_kind),
     )
-
-
-def sort_merge_bytes(n_build: int, n_probe: int, key_bytes: int = 4) -> int:
-    """Algorithmic traffic of the sort-merge count join: the XLA sort's
-    multi-pass read+write of (key, tag) plus one streaming scan pass.
-
-    Sort pass count is an empirical ~8 for XLA's tiled TPU sort at 1e8-1e9
-    elements (measured 4.1 ns/element ≈ 8 passes at ~2 B/ns/element/pass).
-    """
-    n = n_build + n_probe
-    per_pass = n * (key_bytes + 1) * 2  # read + write of key+tag
-    return 8 * per_pass + n * (key_bytes + 1)

@@ -1,6 +1,6 @@
 """Phase timing, parameter bags, and results rendering.
 
-TPU-native counterpart of src/Common/Results.hpp:
+Counterpart of src/Common/Results.hpp:
 
 - ``Parameters``               <- Results.hpp:20-56
 - ``HashJoinTimingResult``     <- Results.hpp:60-88
@@ -15,8 +15,8 @@ TPU-native counterpart of src/Common/Results.hpp:
 Divergence from the reference (documented per SURVEY.md appendix item 1): the
 reference computes the no-partitioning probe duration from *build start*
 (Results.hpp:202), so its published probe figures include build time.  This
-implementation attributes each phase to its own begin/end pair.  On TPU, a
-phase "ends" only after ``jax.block_until_ready`` — callers are responsible
+implementation attributes each phase to its own begin/end pair.  On a
+device, a phase "ends" only after ``jax.block_until_ready`` — callers are responsible
 for device synchronization before calling the ``set_*_end`` methods.
 """
 

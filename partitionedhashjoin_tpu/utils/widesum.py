@@ -1,6 +1,6 @@
 """Exact 64-bit summation of 32-bit device arrays without x64 mode.
 
-The engine keeps row data in int32 (the TPU-native width), but a GetAll join
+The engine keeps row data in int32, but a GetAll join
 cardinality is Σ multiplicities and can exceed 2^31-1 (e.g. 10^5-duplicated
 build keys × 2·10^8 probe rows ≈ 2·10^13).  ``jnp.sum`` over int32 silently
 wraps — the reference never hits this because its counter is a C++ int64

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Filtered composed query at reference scale, on chip (round 4, R7):
+"""Filtered composed query at reference scale, on the GPU (R7):
 
     SELECT b.key, COUNT(*), SUM(b.pay), MIN(b.pay), MAX(b.pay)
     FROM B JOIN A USING (key) WHERE b.pay % 2 = 0
@@ -7,18 +7,18 @@
 
 The query layer's R7 rule (R5∘R3) must stage the filter: one Pallas
 block-compaction pass shrinks the probe relation FIRST, invalid build
-rows re-key to the opposite sentinel, and the plain kernel pipeline
+rows re-key to the opposite sentinel, and the two-run pipeline
 (two_run_materialize + aggregate_sorted) runs on the survivors — so a
 50 %-selectivity filter should cost roughly the compaction pass while
 every relation-sized sort HALVES.  A/B'd against the unfiltered
 pipeline (the round-4 headline composed query) for context.
 
 Oracles: the group-COUNT total must equal the survivor count from an
-independent masked kernel count (two_run_count with probe_valid — a
+independent masked count (two_run_count with probe_valid — a
 different code path), and the query layer's EXPLAIN must pick R7.
 
-Run WITHOUT JAX_PLATFORMS=cpu.  Env: PHJ_BENCH_PRIMARY/SECONDARY/SKEW,
-PHJ_BENCH_INTERPRET=1 for a CPU smoke of the script logic.
+Run on the GPU.  Env: PHJ_BENCH_PRIMARY/SECONDARY/SKEW (small sizes under
+JAX_PLATFORMS=cpu smoke the script logic; CPU timings mean nothing).
 """
 
 import json
@@ -32,17 +32,18 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 from partitionedhashjoin_tpu.data.table import Table
 from partitionedhashjoin_tpu.query import scan
-from partitionedhashjoin_tpu.utils.device import sync
 
 N_A = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
 N_B = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
 SKEW = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))
-INTERPRET = os.environ.get("PHJ_BENCH_INTERPRET", "") == "1"
 
 
 def log(m):
@@ -60,7 +61,7 @@ def main():
     b_pay = jax.random.randint(
         jax.random.PRNGKey(9), (N_B,), 0, 1 << 20, dtype=jnp.int32
     )
-    sync((a_keys, b_keys, b_pay))
+    jax.block_until_ready((a_keys, b_keys, b_pay))
     log(f"generate: {time.perf_counter() - t0:.1f}s")
 
     ta = Table(keys=a_keys, payloads=a_pay)
@@ -80,18 +81,18 @@ def main():
             .order_by("count", descending=True).limit(10)
         ),
     }
-    plan_text = plans["filtered-R7"].explain(interpret=INTERPRET)
+    plan_text = plans["filtered-R7"].explain()
     log("filtered plan:\n" + plan_text)
-    assert "R7" in plan_text, "planner must pick the staged kernel path"
+    assert "R7" in plan_text, "planner must pick the staged two-run path"
 
     results = {}
     for name, q in plans.items():
-        g = q.execute(interpret=INTERPRET)  # compile
+        g = q.execute()  # compile
         best = float("inf")
         for _ in range(2):
             t1 = time.perf_counter()
-            g = q.execute(interpret=INTERPRET)
-            sync((g.keys, g.count, g.sum))
+            g = q.execute()
+            jax.block_until_ready((g.keys, g.count, g.sum))
             best = min(best, time.perf_counter() - t1)
         results[name] = (best, g)
         log(
@@ -99,7 +100,7 @@ def main():
             f"-> {N_B/best/1e6:.0f}M rows/s (input rows)"
         )
 
-    # oracle: independent masked kernel count must equal the filtered
+    # oracle: independent masked two-run count must equal the filtered
     # plan's total group COUNT
     from partitionedhashjoin_tpu.ops.merge_join import two_run_count
 
@@ -107,7 +108,6 @@ def main():
         jax.device_get(
             two_run_count(
                 a_keys, b_keys, probe_valid=pred(b_keys, b_pay),
-                interpret=INTERPRET,
             )
         )
     )
@@ -116,11 +116,11 @@ def main():
     # count-sum oracle (same staged plan, no tail)
     g_full = (
         scan(tb).filter(pred).join(scan(ta))
-        .group_by(group_capacity=cap).execute(interpret=INTERPRET)
+        .group_by(group_capacity=cap).execute()
     )
     total = int(jax.device_get(jnp.sum(g_full.count)))
     assert total == survivors, (total, survivors)
-    log(f"oracle: group-count total {total} == masked kernel count")
+    log(f"oracle: group-count total {total} == masked two-run count")
 
     t_f, t_u = results["filtered-R7"][0], results["unfiltered"][0]
     print(json.dumps({

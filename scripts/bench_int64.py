@@ -2,7 +2,7 @@
 """int64-key benchmark row: the reference's Tuple::id width (Table.hpp:20-25).
 
 Runs the 10M ⋈ 200M workload with int64 keys through the flagship joiner
-(two-run hi/lo-plane kernel on TPU) and prints one JSON line, mirroring
+(the two-run join on int64 keys) and prints one JSON line, mirroring
 bench.py.  Requires x64 mode, enabled here before jax initializes arrays.
 """
 import json
@@ -16,14 +16,16 @@ sys.path.insert(0, REPO)
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
 from partitionedhashjoin_tpu.data.table import Table  # noqa: E402
 from partitionedhashjoin_tpu.ops.sort_merge import SortMergeJoiner  # noqa: E402
-from partitionedhashjoin_tpu.utils.device import sync  # noqa: E402
 
 BASELINE_ROWS_PER_S = 200e6 / 1.196
 
@@ -32,16 +34,9 @@ def log(m):
     print(m, file=sys.stderr, flush=True)
 
 
-def _apply_sort_impl():
-    from partitionedhashjoin_tpu.ops import merge_join
-
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
 
 
 def main():
-    _apply_sort_impl()
     n_a = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
     n_b = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
     skew = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))
@@ -66,7 +61,7 @@ def main():
     )
     table_a = Table(keys=keys_a, payloads=jnp.zeros((n_a,), jnp.int32))
     table_b = Table(keys=keys_b, payloads=jnp.zeros((n_b,), jnp.int32))
-    sync((table_a.keys, table_b.keys))
+    jax.block_until_ready((table_a.keys, table_b.keys))
     log(f"generate: {time.perf_counter() - t0:.1f}s")
 
     joiner = SortMergeJoiner()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Materialized join at scale on the real TPU (VERDICT_r02 missing #3).
+"""Materialized join at scale on the GPU.
 
-Measures the kernel materialize path (merge_join.two_run_materialize:
-two value-carrying sorts + the payload/position kernel, compaction
+Measures the key-order materialize path (merge_join.two_run_materialize:
+two value-carrying sorts + a search and payload gather, compaction
 dispatch skipped when every probe row matches) at the reference workload
 10M ⋈ 200M, plus an at-scale output-correctness oracle:
 
@@ -13,7 +13,7 @@ dispatch skipped when every probe row matches) at the reference workload
     200M-row check, not a sample
   - pay_b sum is preserved (multiset invariant under reordering)
 
-Run without JAX_PLATFORMS=cpu.  Prints one JSON line.
+Run on the GPU.  Prints one JSON line.
 """
 
 import json
@@ -27,34 +27,25 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 from partitionedhashjoin_tpu.ops.merge_join import two_run_materialize
-from partitionedhashjoin_tpu.utils.device import sync
 
 N_A = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
 N_B = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
 SKEW = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))
 SALT = 0x5A17
-# CPU smoke of the script logic (kernels interpreted; timings meaningless)
-INTERPRET = os.environ.get("PHJ_BENCH_INTERPRET", "") == "1"
 
 
 def log(m):
     print(m, file=sys.stderr, flush=True)
 
 
-def _apply_sort_impl():
-    from partitionedhashjoin_tpu.ops import merge_join
-
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
-
-
 def main():
-    _apply_sort_impl()
     from partitionedhashjoin_tpu.ops.generators import zipf_keys
 
     log(f"device: {jax.devices()[0]}; {N_A} ⋈ {N_B} skew {SKEW}")
@@ -65,24 +56,23 @@ def main():
     b_pay = jax.random.randint(
         jax.random.PRNGKey(7), (N_B,), 0, 1 << 20, dtype=jnp.int32
     )
-    sync((a_keys, b_keys, b_pay))
+    jax.block_until_ready((a_keys, b_keys, b_pay))
     log(f"generate: {time.perf_counter() - t0:.1f}s")
 
     # warmup/compile
-    out = two_run_materialize(a_keys, a_pay, b_keys, b_pay,
-                              interpret=INTERPRET)
-    sync(out)
+    out = two_run_materialize(a_keys, a_pay, b_keys, b_pay)
+    jax.block_until_ready(out)
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         keys, pa, pb, count = two_run_materialize(
-            a_keys, a_pay, b_keys, b_pay, interpret=INTERPRET
+            a_keys, a_pay, b_keys, b_pay
         )
-        sync((keys, pa, pb))
+        jax.block_until_ready((keys, pa, pb))
         best = min(best, time.perf_counter() - t0)
     log(f"materialize: {best*1e3:.0f} ms ({N_B/best/1e6:.0f}M rows/s)")
 
-    # at-scale oracle (device-side reductions; no relay transfers)
+    # at-scale oracle (device-side reductions)
     @jax.jit
     def checks(keys, pa, pb, b_pay_in):
         asc = jnp.all(keys[1:] >= keys[:-1])

@@ -5,8 +5,7 @@ Runs the extended-operator pipeline — predicate filter fused into the
 sort-based hash-aggregate (ops/aggregate.py::filter_sort_aggregate) — on the
 reference-scale table (200M Zipf(1.05) keys over a 10M domain, payload = row
 index) and prints one JSON line like bench.py.  The reference has no
-aggregate operator; the baseline here is the engine's own hash-path cost
-model (see docs/PERFORMANCE.md), so ``vs_baseline`` is reported as rows/s
+aggregate operator, so ``vs_baseline`` is reported as rows/s
 against the reference's best JOIN throughput purely for scale context.
 """
 import json
@@ -19,8 +18,11 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -28,7 +30,6 @@ from partitionedhashjoin_tpu.data.table import Table  # noqa: E402
 from partitionedhashjoin_tpu.ops.aggregate import (  # noqa: E402
     filter_sort_aggregate,
 )
-from partitionedhashjoin_tpu.utils.device import sync  # noqa: E402
 
 BASELINE_ROWS_PER_S = 200e6 / 1.196
 
@@ -37,16 +38,9 @@ def log(m):
     print(m, file=sys.stderr, flush=True)
 
 
-def _apply_sort_impl():
-    from partitionedhashjoin_tpu.ops import merge_join
-
-    impl = merge_join.set_sort_impl_from_env()
-    if impl != "xla":
-        log(f"sort impl: {impl}")
 
 
 def main():
-    _apply_sort_impl()
     n = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
     domain = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
     skew = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))
@@ -58,7 +52,7 @@ def main():
     keys = zipf_keys(jax.random.PRNGKey(20260817), n, skew, domain)
     pay = jnp.arange(n, dtype=jnp.int32)
     table = Table(keys=keys, payloads=pay)
-    sync(table.keys)
+    jax.block_until_ready(table.keys)
     log(f"generate: {time.perf_counter() - t0:.1f}s")
 
     cap = 1 << 24  # 16M group slots >= 10M domain
@@ -78,7 +72,7 @@ def main():
     nums = set()
     for name, fn in pipelines.items():
         g, count = fn(table, pred, group_capacity=cap)
-        sync(g.num_groups)  # warmup/compile
+        jax.block_until_ready(g.num_groups)  # warmup/compile
         num = int(jax.device_get(g.num_groups))
         assert num <= cap, f"{name}: group capacity overflow: {num}"
         nums.add(num)
@@ -88,7 +82,7 @@ def main():
         for _ in range(2):
             t0 = time.perf_counter()
             g, count = fn(table, pred, group_capacity=cap)
-            sync(g.num_groups)
+            jax.block_until_ready(g.num_groups)
             best = min(best, time.perf_counter() - t0)
         results[name] = best
         log(

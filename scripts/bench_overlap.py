@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Pipelined (exchange overlapped with probe) vs one-shot shuffle join on
-the 8-device virtual mesh — the strongest overlap evidence available in
-this environment (VERDICT_r02 missing #2).
+the 8-device virtual mesh.
 
 Real collective boundaries: ``all_to_all`` lowers and executes exactly as
-on ICI; host threads stand in for links, so absolute link bandwidth is not
+on a device mesh; host threads stand in for links, so absolute link bandwidth is not
 representative but the PROGRAM STRUCTURE (can XLA start chunk k+1's
 exchange before chunk k's local count finishes?) is.  Measures, at fixed
 total rows, the one-shot exchange (pipeline_chunks=1) against round-robin
@@ -33,6 +32,12 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 

@@ -1,17 +1,17 @@
 #!/usr/bin/env python
-"""Composed analytics query at reference scale, on chip:
+"""Composed analytics query at reference scale, on the GPU:
 
     SELECT b.key, COUNT(*), SUM(b.pay), MIN(b.pay), MAX(b.pay)
     FROM B JOIN A USING (key) GROUP BY key          -- then ORDER BY count LIMIT 10
 
-via the engine's order-propagation rule: the materialized kernel join
+via the engine's order-propagation rule: the materialized two-run join
 (merge_join.two_run_materialize) emits key-ORDERED output, so the GROUP BY
 rides aggregate_sorted and never pays a second relation sort.  A/B'd
 against the naive plan (materialize -> sort_aggregate, which re-sorts
 200M rows) with full result-equality as the oracle.  Prints one JSON line.
 
-Run WITHOUT JAX_PLATFORMS=cpu.  Env: PHJ_BENCH_PRIMARY/SECONDARY/SKEW,
-PHJ_BENCH_INTERPRET=1 for a CPU smoke of the script logic.
+Run on the GPU.  Env: PHJ_BENCH_PRIMARY/SECONDARY/SKEW (small sizes under
+JAX_PLATFORMS=cpu smoke the script logic; CPU timings mean nothing).
 """
 
 import json
@@ -25,8 +25,11 @@ sys.path.insert(0, REPO)
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from partitionedhashjoin_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
+
+enable_compile_cache()
 
 from partitionedhashjoin_tpu.data.table import Table
 from partitionedhashjoin_tpu.ops.aggregate import (
@@ -35,12 +38,10 @@ from partitionedhashjoin_tpu.ops.aggregate import (
 )
 from partitionedhashjoin_tpu.ops.merge_join import two_run_materialize
 from partitionedhashjoin_tpu.ops.order_by import top_k
-from partitionedhashjoin_tpu.utils.device import sync
 
 N_A = int(os.environ.get("PHJ_BENCH_PRIMARY", 10_000_000))
 N_B = int(os.environ.get("PHJ_BENCH_SECONDARY", 200_000_000))
 SKEW = float(os.environ.get("PHJ_BENCH_SKEW", 1.05))
-INTERPRET = os.environ.get("PHJ_BENCH_INTERPRET", "") == "1"
 BASELINE_ROWS_PER_S = 200e6 / 1.196  # reference best JOIN, scale context
 
 
@@ -52,25 +53,24 @@ def run_query(a_keys, a_pay, b_keys, b_pay, cap, ordered: bool):
     """materialize -> GROUP BY (order-propagating or naive) -> top-10.
 
     The ordered plan asks the materializer for payload-ascending runs
-    (one extra sort key, ~0.2 ns/el) so the GROUP BY needs NO relation
-    sort and NO segmented scans (whose 200M-scale compile OOMs the remote
-    helper — docs/PERFORMANCE.md round 4)."""
+    (one extra sort key) so the GROUP BY needs NO relation sort and NO
+    segmented scans."""
     keys, pa, pb, count = two_run_materialize(
-        a_keys, a_pay, b_keys, b_pay, interpret=INTERPRET,
+        a_keys, a_pay, b_keys, b_pay,
         probe_payload_sorted=ordered,
     )
     t = Table(keys=keys, payloads=pb)
     if ordered:
         g = aggregate_sorted(
-            t, group_capacity=cap, n_valid=count, interpret=INTERPRET,
+            t, group_capacity=cap, n_valid=count,
             payload_sorted=True,
         )
     else:
-        g = sort_aggregate(t, group_capacity=cap, interpret=INTERPRET)
+        g = sort_aggregate(t, group_capacity=cap)
     hot = top_k(
         Table(keys=g.count, payloads=g.keys), 10, by="key", descending=True
     )
-    sync((hot.keys, hot.payloads, g.sum))
+    jax.block_until_ready((hot.keys, hot.payloads, g.sum))
     return g, hot, count
 
 
@@ -85,7 +85,7 @@ def main():
     b_pay = jax.random.randint(
         jax.random.PRNGKey(9), (N_B,), 0, 1 << 20, dtype=jnp.int32
     )
-    sync((a_keys, b_keys, b_pay))
+    jax.block_until_ready((a_keys, b_keys, b_pay))
     log(f"generate: {time.perf_counter() - t0:.1f}s")
 
     cap = 1 << 24
@@ -125,7 +125,7 @@ def main():
         f"{int(jax.device_get(hot1.keys)[0])}")
 
     # the declarative layer must pick the ordered plan by itself (R3+R4)
-    # and add zero measurable overhead — same kernels, same results
+    # and add zero measurable overhead — same programs, same results
     from partitionedhashjoin_tpu.query import scan
 
     ta = Table(keys=a_keys, payloads=a_pay)
@@ -135,16 +135,16 @@ def main():
         .group_by(group_capacity=cap)
         .order_by("count", descending=True).limit(10)
     )
-    plan_text = q.explain(interpret=INTERPRET)
+    plan_text = q.explain()
     log("query-layer plan:\n" + plan_text)
     assert "R3" in plan_text, "planner must pick the ordered path"
-    topq = q.execute(interpret=INTERPRET)
-    sync((topq.keys, topq.count))
+    topq = q.execute()
+    jax.block_until_ready((topq.keys, topq.count))
     best_q = float("inf")
     for _ in range(2):
         t0 = time.perf_counter()
-        topq = q.execute(interpret=INTERPRET)
-        sync((topq.keys, topq.count))
+        topq = q.execute()
+        jax.block_until_ready((topq.keys, topq.count))
         best_q = min(best_q, time.perf_counter() - t0)
     log(
         f"join+group-by+top10 [query-layer]: {best_q*1e3:.0f} ms "
@@ -160,8 +160,8 @@ def main():
     # the SQL surface must lower to the same plan (parse + analysis are
     # host-side; overhead must be noise) and agree on the result.
     # Free the A/B intermediates first: two kept aggregates + their
-    # relation-sized group_of_row columns are ~2-3 GB of dead HBM and the
-    # extra execution below OOMed the chip with them alive.
+    # relation-sized group_of_row columns are ~2-3 GB of dead device memory
+    # the extra execution below does not need.
     hot1_keys = jax.device_get(hot1.keys)[:10].tolist()
     hot1_pays = jax.device_get(hot1.payloads)[:10].tolist()
     best = results["ordered"][0]
@@ -178,10 +178,10 @@ def main():
         "GROUP BY key ORDER BY count DESC LIMIT 10"
     )
     db = {"a": ta, "b": tb}
-    assert "R3" in explain_sql(sql, db, interpret=INTERPRET), (
+    assert "R3" in explain_sql(sql, db), (
         "SQL must lower to the ordered plan"
     )
-    kw = dict(interpret=INTERPRET, group_capacity=cap)
+    kw = dict(group_capacity=cap)
     rs = execute_sql(sql, db, **kw)  # warm
     best_s = float("inf")
     for _ in range(2):

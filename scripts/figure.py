@@ -11,7 +11,7 @@ the dataviz reference instance (adjacent-pair CVD ΔE >= 8, normal-vision
 Phase identity is encoded by legend + fixed hue order; totals are
 direct-labeled; grid/axes are recessive.
 
-Usage: python scripts/figure.py results/tpu-v5e/figure.dat out.png ["Title"]
+Usage: python scripts/figure.py results/h100/figure.dat out.png ["Title"]
 """
 
 from __future__ import annotations

@@ -7,8 +7,7 @@
 # free RAM — an XLA-CPU pressure artifact, not a test failure; every
 # file passes in its own process).  A fresh interpreter per file bounds
 # that state, gives per-file wall times, and isolates any crash to its
-# file.  Total ~60-90 min on 4 cores (interpret-mode Pallas compiles
-# dominate; see CLAUDE.md).
+# file.
 #
 # Usage: scripts/run_tests.sh [pytest-args...]   (extra args forwarded)
 set -u

@@ -1,5 +1,5 @@
-"""Kernel materialize path (merge_probe.ranged_merge_payload_prepared +
-merge_join.two_run_materialize), interpret mode.
+"""Two-run materialize path (merge_join.sorted_position as the payload
+probe + merge_join.two_run_materialize).
 
 Oracle: brute-force numpy first-match join.  Contract under test:
 - pos = 1 + LOWEST sorted-A position whose key matches (0 = miss)
@@ -12,10 +12,18 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from partitionedhashjoin_tpu.ops.merge_join import two_run_materialize
-from partitionedhashjoin_tpu.ops.pallas.merge_probe import (
-    ranged_merge_payload_prepared,
+from partitionedhashjoin_tpu.ops.merge_join import (
+    sorted_position,
+    two_run_materialize,
 )
+
+
+def ranged_merge_payload_prepared(a_sorted, a_payloads, b_sorted):
+    """(pay, pos) per probe row: pos = 1 + the lowest matching sorted-A
+    position (0 = miss), pay = that row's payload (0 on a miss)."""
+    hit, idx = sorted_position(a_sorted, b_sorted)
+    pay = jnp.where(hit, a_payloads[idx], 0)
+    return pay, jnp.where(hit, idx + 1, 0)
 
 
 def _oracle(a_keys, a_pay, b_keys):
@@ -32,7 +40,7 @@ def _oracle(a_keys, a_pay, b_keys):
     return pay, pos, bs
 
 
-class TestPayloadKernel:
+class TestPayloadProbe:
     @pytest.mark.parametrize("n_a,n_b,key_range", [
         (100, 257, 300), (5000, 20000, 2000), (2048, 8192, 2**31 - 1),
     ])
@@ -46,7 +54,7 @@ class TestPayloadKernel:
         srt = np.argsort(a_keys, kind="stable")
         pay, pos = ranged_merge_payload_prepared(
             jnp.asarray(a_s), jnp.asarray(a_pay[srt]),
-            jnp.asarray(np.sort(b_keys)), interpret=True,
+            jnp.asarray(np.sort(b_keys)),
         )
         np.testing.assert_array_equal(np.asarray(pos), want_pos)
         np.testing.assert_array_equal(np.asarray(pay), want_pay)
@@ -58,7 +66,7 @@ class TestPayloadKernel:
         b_keys = np.array([7, 7, 9, 4], np.int32)
         pay, pos = ranged_merge_payload_prepared(
             jnp.asarray(a_keys), jnp.asarray(a_pay),
-            jnp.asarray(np.sort(b_keys)), interpret=True,
+            jnp.asarray(np.sort(b_keys)),
         )
         # sorted b = [4, 7, 7, 9]
         np.testing.assert_array_equal(np.asarray(pos), [0, 2, 2, 5])
@@ -75,7 +83,7 @@ class TestPayloadKernel:
         b_keys = np.array([5] * 100 + [-15] * 3, np.int32)
         pay, pos = ranged_merge_payload_prepared(
             jnp.asarray(a_keys), jnp.asarray(a_pay),
-            jnp.asarray(np.sort(b_keys)), interpret=True,
+            jnp.asarray(np.sort(b_keys)),
         )
         first5 = int(np.searchsorted(a_keys, 5))
         bs = np.sort(b_keys)
@@ -96,7 +104,7 @@ class TestTwoRunMaterialize:
         b_pay = rng.integers(0, 1000, n_b).astype(np.int32)
         keys, pa, pb, count = two_run_materialize(
             jnp.asarray(a_keys), jnp.asarray(a_pay),
-            jnp.asarray(b_keys), jnp.asarray(b_pay), interpret=True,
+            jnp.asarray(b_keys), jnp.asarray(b_pay),
         )
         assert int(count) == n_b
         bs_order = np.argsort(b_keys, kind="stable")
@@ -120,7 +128,7 @@ class TestTwoRunMaterialize:
         b_pay = np.arange(n_b, dtype=np.int32)
         keys, pa, pb, count = two_run_materialize(
             jnp.asarray(a_keys), jnp.asarray(a_pay),
-            jnp.asarray(b_keys), jnp.asarray(b_pay), interpret=True,
+            jnp.asarray(b_keys), jnp.asarray(b_pay),
         )
         c = int(count)
         want = int((b_keys % 2 == 0).sum())
@@ -143,24 +151,23 @@ class TestTwoRunMaterialize:
             k = jnp.asarray(np.array([1, 2], np.int64))
             p = jnp.asarray(np.array([1, 2], np.int32))
             with pytest.raises(TypeError):
-                two_run_materialize(k, p, k, p, interpret=True)
+                two_run_materialize(k, p, k, p)
 
     def test_empty_inputs(self):
         z = jnp.zeros((0,), jnp.int32)
         some = jnp.asarray(np.arange(5, dtype=np.int32))
         keys, pa, pb, count = two_run_materialize(z, z, some, some,
-                                                  interpret=True)
+                                                  )
         assert int(count) == 0 and keys.shape[0] == 5
         keys, pa, pb, count = two_run_materialize(some, some, z, z,
-                                                  interpret=True)
+                                                  )
         assert int(count) == 0 and keys.shape[0] == 0
 
 
-def test_two_run_materialize_pallas_sorter_agrees():
-    """Pallas tuple sorter as the partition step of the materialize path:
-    same count, same key column, same per-key payload multisets."""
-    from partitionedhashjoin_tpu.ops import merge_join
-
+def test_two_run_materialize_probe_payload_sorted_agrees():
+    """probe_payload_sorted=True (payload as the second sort key): same
+    count, same key column, same per-key payload multisets, and pay_b
+    ascending within each key run."""
     rng = np.random.default_rng(7)
     n_a, n_b = 3000, 20000
     a_keys = rng.integers(0, 4000, n_a).astype(np.int32)
@@ -169,44 +176,30 @@ def test_two_run_materialize_pallas_sorter_agrees():
     b_pay = rng.integers(0, 10**6, n_b).astype(np.int32)
     args = (jnp.asarray(a_keys), jnp.asarray(a_pay),
             jnp.asarray(b_keys), jnp.asarray(b_pay))
-    keys0, pa0, pb0, c0 = two_run_materialize(*args, interpret=True)
-    merge_join.set_sort_impl("pallas")
-    try:
-        keys1, pa1, pb1, c1 = two_run_materialize(*args, interpret=True)
-    finally:
-        merge_join.set_sort_impl("xla")
+    keys0, pa0, pb0, c0 = two_run_materialize(*args)
+    keys1, pa1, pb1, c1 = two_run_materialize(
+        *args, probe_payload_sorted=True
+    )
     assert int(c0) == int(c1)
     np.testing.assert_array_equal(np.asarray(keys0), np.asarray(keys1))
-    # payload-b multisets per key must agree (tie order differs by impl);
-    # payload-a may differ among duplicate build keys (first-match is
-    # impl-deterministic, not impl-portable) but must BE a payload of the key
-    pay_of_key = {}
-    for k, p in zip(a_keys.tolist(), a_pay.tolist()):
-        pay_of_key.setdefault(k, set()).add(p)
+    np.testing.assert_array_equal(np.asarray(pa0), np.asarray(pa1))
     c = int(c0)
-    for k, p in zip(np.asarray(keys1)[:c].tolist(),
-                    np.asarray(pa1)[:c].tolist()):
-        assert p in pay_of_key[k]
-    assert sorted(np.asarray(pb0)[:c].tolist()) == \
-        sorted(np.asarray(pb1)[:c].tolist())
+    k1 = np.asarray(keys1)[:c]
+    p1 = np.asarray(pb1)[:c]
+    same_key = k1[1:] == k1[:-1]
+    assert (p1[1:][same_key] >= p1[:-1][same_key]).all()
+    assert sorted(np.asarray(pb0)[:c].tolist()) == sorted(p1.tolist())
 
 
 def test_payload_kernel_multiple_probe_blocks():
-    """Round-3 review gap: shipped payload-kernel tests covered one probe
-    block; this one spans two 64K blocks with duplicates at the seam."""
+    """A probe of more than 64K sorted rows with duplicates throughout."""
     rng = np.random.default_rng(8)
-    from partitionedhashjoin_tpu.ops.pallas.merge_probe import (
-        BLOCK,
-        ranged_merge_payload_prepared,
-    )
-
-    n_a, n_b = 3000, BLOCK + 1777
+    n_a, n_b = 3000, 65536 + 1777
     a_keys = np.sort(rng.integers(0, 2500, n_a).astype(np.int32))
     a_pay = (np.arange(n_a) + 11).astype(np.int32)
     b_keys = np.sort(rng.integers(0, 3000, n_b).astype(np.int32))
     pay, pos = ranged_merge_payload_prepared(
         jnp.asarray(a_keys), jnp.asarray(a_pay), jnp.asarray(b_keys),
-        interpret=True,
     )
     pos = np.asarray(pos)
     pay = np.asarray(pay)

@@ -1,23 +1,24 @@
-"""Ranged merge-probe kernel + two-run join wrapper (interpret mode on CPU).
+"""Sorted-run probe (merge_join.sorted_runs_count) + two-run join wrapper.
 
-The kernel is the VMEM per-partition probe the round-1 review flagged as the
-biggest unbuilt component; these tests pin its exactness properties: full
-int32 domain (INT32_MAX is load-bearing: it is also the padding value),
-duplicate-heavy runs, multi-tile ranges, validity masks, and agreement with
-the hash and sort-merge paths.
+These tests pin the probe's exactness properties: full int32 domain
+(INT32_MAX is load-bearing: it is also the validity sentinel),
+duplicate-heavy runs, long ranges, validity masks, and agreement with the
+hash and sort-merge paths.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from partitionedhashjoin_tpu.ops.merge_join import two_run_count
-from partitionedhashjoin_tpu.ops.pallas.merge_probe import (
-    BLOCK,
-    CAP,
-    ranged_merge_count,
-    tile_build_side,
+from partitionedhashjoin_tpu.ops import merge_join
+from partitionedhashjoin_tpu.ops.merge_join import (
+    sorted_runs_count,
+    two_run_count,
 )
+
+# block and tile sizes of the former tiled probe, kept as adversarial shapes
+BLOCK = 65536
+CAP = 2048
 
 I32_MAX = np.iinfo(np.int32).max
 I32_MIN = np.iinfo(np.int32).min
@@ -26,19 +27,20 @@ I32_MIN = np.iinfo(np.int32).min
 def _count(a, b, **kw):
     a = np.sort(np.asarray(a, np.int32))
     b = np.sort(np.asarray(b, np.int32))
-    return int(ranged_merge_count(jnp.asarray(a), jnp.asarray(b),
-                                  interpret=True, **kw))
+    return int(sorted_runs_count(jnp.asarray(a), jnp.asarray(b), **kw))
 
 
-def test_tile_layout_lane_contiguous():
-    a = jnp.arange(5000, dtype=jnp.int32)
-    tiles, n_tiles = tile_build_side(a)
-    assert tiles.shape == (n_tiles, CAP // 128, 128)
-    t = np.asarray(tiles)
-    # tiles[k, r, l] = a_padded[CAP*k + SUBL*l + r]
-    assert t[0, 0, 0] == 0 and t[0, 1, 0] == 1 and t[0, 0, 1] == 16
-    assert t[1, 3, 2] == CAP + 16 * 2 + 3
-    assert t[-1, -1, -1] == I32_MAX  # spare padding tile
+def test_sorted_position_lowest_match():
+    # sorted_position reports the LOWEST position of a duplicated key and
+    # clamps misses past the end in bounds
+    a = jnp.asarray([-3, 0, 0, 0, 5, I32_MAX], jnp.int32)
+    q = jnp.asarray([0, 5, I32_MAX, 7, -9, 4], jnp.int32)
+    hit, idx = merge_join.sorted_position(a, q)
+    np.testing.assert_array_equal(
+        np.asarray(hit), [True, True, True, False, False, False]
+    )
+    np.testing.assert_array_equal(np.asarray(idx)[:3], [1, 4, 5])
+    assert (np.asarray(idx) < 6).all()
 
 
 @pytest.mark.parametrize("dom", [50, 8000, 2**31 - 1])
@@ -50,7 +52,7 @@ def test_random_counts_match_numpy(dom):
 
 
 def test_multi_tile_ranges():
-    # build >> CAP with narrow probe blocks forces multi-chunk fori loops
+    # a large build run against a probe wider than one former block
     rng = np.random.default_rng(5)
     a = rng.integers(0, 3_000_000, 1_000_000).astype(np.int32)
     b = rng.integers(0, 3_000_000, BLOCK + 17).astype(np.int32)
@@ -61,7 +63,7 @@ def test_full_domain_edges():
     a = [I32_MAX, I32_MAX, 5, I32_MIN, -7]
     b = [I32_MAX, 5, 6, I32_MAX, -7, I32_MIN, I32_MIN]
     assert _count(a, b) == 6
-    assert _count([5, -7], [I32_MAX, 5]) == 1  # padding must not match
+    assert _count([5, -7], [I32_MAX, 5]) == 1  # INT32_MAX absent: no match
     assert _count([I32_MAX], [I32_MAX] * 3) == 3
 
 
@@ -77,7 +79,7 @@ def test_two_run_count_agrees_with_sort_merge():
     a = rng.integers(-(2**31), 2**31 - 1, 3000, dtype=np.int64).astype(np.int32)
     b = rng.integers(-(2**31), 2**31 - 1, 66000, dtype=np.int64).astype(np.int32)
     b[:30000] = rng.choice(a, 30000)
-    got = int(two_run_count(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    got = int(two_run_count(jnp.asarray(a), jnp.asarray(b)))
     want = int(sort_merge_count(jnp.asarray(a), jnp.asarray(b)))
     assert got == want == int(np.isin(b, a).sum())
 
@@ -92,7 +94,6 @@ def test_two_run_count_validity_masks_with_int32_max():
     got = int(
         two_run_count(
             jnp.asarray(a), jnp.asarray(b), jnp.asarray(av), jnp.asarray(bv),
-            interpret=True,
         )
     )
     assert got == 22000
@@ -103,9 +104,7 @@ def test_radix_vmem_mode_joiner():
     from partitionedhashjoin_tpu.data.table import make_table
     from partitionedhashjoin_tpu.ops.radix_cluster import RadixHashJoiner
 
-    # interpret-mode Pallas does not run through the joiner (it requests the
-    # compiled path); on CPU "auto" resolves to chained — assert that the
-    # mode plumbing selects correctly and that "chained" still answers
+    # "auto", "vmem" and "chained" all answer exactly
     rng = np.random.default_rng(2)
     a_keys = rng.integers(0, 5000, 2500).astype(np.int32)
     b_keys = rng.integers(0, 5000, 9000).astype(np.int32)
@@ -117,6 +116,11 @@ def test_radix_vmem_mode_joiner():
         seed=3,
     )
     assert chained.run(a, b) == want
+    vmem = RadixHashJoiner(
+        RadixClusteringConfiguration(number_of_partitions=8, mode="vmem"),
+        seed=3,
+    )
+    assert vmem.run(a, b) == want
     auto = RadixHashJoiner(
         RadixClusteringConfiguration(number_of_partitions=8), seed=3
     )
@@ -126,7 +130,7 @@ def test_radix_vmem_mode_joiner():
 def test_int64_kernel_interpret():
     import jax
     from partitionedhashjoin_tpu.ops.merge_join import two_run_count_i64
-    from partitionedhashjoin_tpu.ops.pallas.merge_probe import split_i64
+    from partitionedhashjoin_tpu.ops.multi_key import split_i64
 
     with jax.enable_x64(True):
         # split_i64 preserves order lexicographically
@@ -143,29 +147,22 @@ def test_int64_kernel_interpret():
         a = rng.integers(-(2**62), 2**62, 3000).astype(np.int64)
         b = rng.integers(-(2**62), 2**62, 66000).astype(np.int64)
         b[:20000] = rng.choice(a, 20000)
-        got = int(two_run_count_i64(jnp.asarray(a), jnp.asarray(b),
-                                    interpret=True))
+        got = int(two_run_count_i64(jnp.asarray(a), jnp.asarray(b)))
         assert got == int(np.isin(b, a).sum())
 
         # edges: INT64_MAX present and absent
         M = np.iinfo(np.int64).max
         a2 = np.asarray([M, 5, -(2**50)], np.int64)
         b2 = np.asarray([M, M, 5, 7, -(2**50)], np.int64)
-        assert int(two_run_count_i64(jnp.asarray(a2), jnp.asarray(b2),
-                                     interpret=True)) == 4
+        assert int(two_run_count_i64(jnp.asarray(a2), jnp.asarray(b2))) == 4
         a3 = np.asarray([5], np.int64)
         b3 = np.asarray([M, 5], np.int64)
-        assert int(two_run_count_i64(jnp.asarray(a3), jnp.asarray(b3),
-                                     interpret=True)) == 1
+        assert int(two_run_count_i64(jnp.asarray(a3), jnp.asarray(b3))) == 1
 
 
 def test_duplicate_run_spanning_tiles_work_list_capacity():
-    """Round-2 review finding: the original work list enumerated EVERY tile
-    of each block's range, so a duplicate run spanning T tiles was scanned
-    T times by every block touching it and sum(ntiles) could exceed the
-    static w_cap — excess items were silently dropped (undercount).  The
-    run-start enumeration (_work_items) skips run-interior tiles, which
-    both fixes the count and proves the bound."""
+    """A duplicate run spanning several former tiles, probed by several
+    former blocks of the hot key: every probe row counts exactly once."""
     # build: one key duplicated across 4 full tiles, then a second key
     a = np.concatenate(
         [np.full(4 * CAP, 10, np.int32), np.full(100, 20, np.int32)]
@@ -197,46 +194,31 @@ def test_single_giant_run():
     assert _count(a, b) == 1000
 
 
-def test_two_run_count_pallas_sorter_agrees():
-    """The partition step's sort implementation (xla vs the Pallas
-    bitonic/merge sorter) must be invisible in the count — including with
-    validity masks, whose INT32_MAX sentinel rewriting happens BEFORE the
-    selected sort."""
-    from partitionedhashjoin_tpu.ops import merge_join
-
+def test_two_run_count_validity_masks_random():
+    """Random validity masks on both sides with genuine INT32_MAX keys: the
+    sentinel rewriting and the closed-form correction stay exact."""
     rng = np.random.default_rng(23)
     a = rng.integers(-50, 50, 9000, dtype=np.int64).astype(np.int32)
     b = rng.integers(-80, 80, 40000, dtype=np.int64).astype(np.int32)
     av = rng.random(9000) < 0.9
     bv = rng.random(40000) < 0.8
-    a[::701] = I32_MAX  # genuine INT32_MAX keys vs the sorter's padding
-    want = int(
+    a[::701] = I32_MAX
+    b[::997] = I32_MAX
+    got = int(
         two_run_count(
             jnp.asarray(a), jnp.asarray(b), jnp.asarray(av), jnp.asarray(bv),
-            interpret=True,
         )
     )
-    merge_join.set_sort_impl("pallas")
-    try:
-        got = int(
-            two_run_count(
-                jnp.asarray(a), jnp.asarray(b), jnp.asarray(av),
-                jnp.asarray(bv), interpret=True,
-            )
-        )
-    finally:
-        merge_join.set_sort_impl("xla")
     valid_build = set(a[av].tolist())
     oracle = int(sum(1 for k, v in zip(b.tolist(), bv.tolist())
                      if v and k in valid_build))
-    assert got == want == oracle
+    assert got == oracle
 
 
-def test_int64_planes_pallas_sorter_agrees():
-    """The int64 plane path with the Pallas tuple sorter as its 2-key plane
-    sort: identical counts across the full int64 domain edges."""
+def test_int64_full_domain_edges():
+    """int64 two-run count across the domain edges, INT64_MIN/MAX in both
+    relations."""
     import jax
-    from partitionedhashjoin_tpu.ops import merge_join
     from partitionedhashjoin_tpu.ops.merge_join import two_run_count_i64
 
     with jax.enable_x64(True):
@@ -245,36 +227,23 @@ def test_int64_planes_pallas_sorter_agrees():
         b = rng.integers(-(2**62), 2**62, 30000).astype(np.int64)
         b[:9000] = rng.choice(a, 9000)
         M = np.iinfo(np.int64).max
+        m = np.iinfo(np.int64).min
         a[::97] = M
         b[::89] = M
-        merge_join.set_sort_impl("pallas")
-        try:
-            got = int(two_run_count_i64(jnp.asarray(a), jnp.asarray(b),
-                                        interpret=True))
-        finally:
-            merge_join.set_sort_impl("xla")
+        a[5] = m
+        b[::101] = m
+        got = int(two_run_count_i64(jnp.asarray(a), jnp.asarray(b)))
         assert got == int(np.isin(b, a).sum())
 
 
-def test_sort_impl_switch_plumbing(monkeypatch):
-    """The engine-wide sorter switch: env knob, auto resolution, rejection
-    of unknown impls — the bench scripts depend on this exact contract."""
-    from partitionedhashjoin_tpu.ops import merge_join as mj
-
-    assert mj.get_sort_impl() == "xla"
-    monkeypatch.setenv("PHJ_SORT_IMPL", "pallas")
-    try:
-        assert mj.set_sort_impl_from_env() == "pallas"
-        assert mj.get_sort_impl() == "pallas"
-    finally:
-        mj.set_sort_impl("xla")
-    monkeypatch.setenv("PHJ_SORT_IMPL", "xla")
-    assert mj.set_sort_impl_from_env() == "xla"
-    # auto: never the interpreter; pallas only on a Mosaic backend
-    assert mj.resolve_sort_impl("auto", interpret=True) == "xla"
-    assert mj.resolve_sort_impl("auto", interpret=False) == (
-        "pallas" if mj.supported() else "xla"
+def test_search_method_is_valid_for_searchsorted():
+    """The module's search method is one jnp.searchsorted accepts, and it
+    answers like numpy."""
+    a = np.sort(np.random.default_rng(3).integers(0, 100, 500)).astype(
+        np.int32
     )
-    assert mj.resolve_sort_impl("pallas", interpret=True) == "pallas"
-    with pytest.raises(ValueError):
-        mj.set_sort_impl("typo")
+    q = np.arange(-5, 105, dtype=np.int32)
+    got = jnp.searchsorted(
+        jnp.asarray(a), jnp.asarray(q), method=merge_join.SEARCH_METHOD
+    )
+    np.testing.assert_array_equal(np.asarray(got), np.searchsorted(a, q))

@@ -2,7 +2,6 @@
 
 Oracles are host-side Python set/Counter arithmetic over key TUPLES, so
 any packing/hashing collision in the implementation would be caught.
-The k == 2 kernel path runs in interpret mode here (CPU suite).
 """
 
 import numpy as np
@@ -39,7 +38,7 @@ def test_count_matches_oracle(k):
     rng = np.random.default_rng(100 + k)
     a = _random_cols(rng, k, 400)
     b = _random_cols(rng, k, 700)
-    got = int(multi_key.multi_key_count(a, b, interpret=True))
+    got = int(multi_key.multi_key_count(a, b))
     assert got == _oracle_count(a, b)
 
 
@@ -59,7 +58,7 @@ def test_partial_tuple_matches_do_not_count():
     # packed/hashed composite key would show
     a = [np.array([1, 2, 3], np.int32), np.array([10, 20, 30], np.int32)]
     b = [np.array([1, 2, 3], np.int32), np.array([99, 20, 31], np.int32)]
-    assert int(multi_key.multi_key_count(a, b, interpret=True)) == 1
+    assert int(multi_key.multi_key_count(a, b)) == 1
 
 
 def test_boundary_values_pair_kernel():
@@ -73,7 +72,7 @@ def test_boundary_values_pair_kernel():
         np.array([I32_MAX, I32_MAX, I32_MAX, I32_MIN, 7], np.int32),
         np.array([I32_MAX, I32_MAX, 5, I32_MIN, 7], np.int32),
     ]
-    got = int(multi_key.multi_key_count(a, b, interpret=True))
+    got = int(multi_key.multi_key_count(a, b))
     assert got == _oracle_count(a, b)  # == 3
 
 
@@ -84,15 +83,15 @@ def test_kernel_and_xla_paths_agree(k):
     b = _random_cols(rng, k, 5000, lo=0, hi=40)
     xla = int(multi_key._multi_key_count_xla(tuple(map(jnp.asarray, a)),
                                              tuple(map(jnp.asarray, b))))
-    api = int(multi_key.multi_key_count(a, b, interpret=True))
+    api = int(multi_key.multi_key_count(a, b))
     assert api == xla == _oracle_count(a, b)
 
 
 def test_empty_sides():
     e = [np.array([], np.int32), np.array([], np.int32)]
     a = [np.array([1], np.int32), np.array([2], np.int32)]
-    assert int(multi_key.multi_key_count(e, a, interpret=True)) == 0
-    assert int(multi_key.multi_key_count(a, e, interpret=True)) == 0
+    assert int(multi_key.multi_key_count(e, a)) == 0
+    assert int(multi_key.multi_key_count(a, e)) == 0
     from partitionedhashjoin_tpu.utils import widesum
 
     assert widesum.pair_to_int(multi_key.multi_key_count_all(a, e)) == 0
@@ -112,18 +111,16 @@ def test_validation_errors():
 
 def test_int64_via_planes_recipe():
     # the documented 64-bit recipe: split_i64 planes as a 2-column key
-    from partitionedhashjoin_tpu.ops.pallas import merge_probe
-
     import jax
 
     rng = np.random.default_rng(7)
     a64 = (rng.integers(-(2**40), 2**40, size=500)).astype(np.int64)
     b64 = np.concatenate([a64[:200], (rng.integers(-(2**40), 2**40, size=300)).astype(np.int64)])
     with jax.enable_x64(True):
-        ah, al = merge_probe.split_i64(jnp.asarray(a64))
-        bh, bl = merge_probe.split_i64(jnp.asarray(b64))
+        ah, al = multi_key.split_i64(jnp.asarray(a64))
+        bh, bl = multi_key.split_i64(jnp.asarray(b64))
         ah, al, bh, bl = map(np.asarray, (ah, al, bh, bl))
-    got = int(multi_key.multi_key_count([ah, al], [bh, bl], interpret=True))
+    got = int(multi_key.multi_key_count([ah, al], [bh, bl]))
     assert got == sum(1 for x in b64.tolist() if x in set(a64.tolist()))
 
 
@@ -135,5 +132,5 @@ def test_fuzz_small():
         n_b = int(rng.integers(1, 120))
         a = _random_cols(rng, k, n_a, lo=-6, hi=6)
         b = _random_cols(rng, k, n_b, lo=-6, hi=6)
-        got = int(multi_key.multi_key_count(a, b, interpret=True))
+        got = int(multi_key.multi_key_count(a, b))
         assert got == _oracle_count(a, b), (trial, k, n_a, n_b)

@@ -33,7 +33,7 @@ def test_sharded_count_matches_oracle_and_local(k):
     b = _random_cols(rng, k, 8192)
     got = MultiKeyShuffleJoiner(mesh, seed=11).run(a, b)
     assert got == _oracle(a, b)
-    assert got == int(multi_key.multi_key_count(a, b, interpret=True))
+    assert got == int(multi_key.multi_key_count(a, b))
 
 
 def test_rows_not_divisible_by_shards():

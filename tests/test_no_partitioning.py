@@ -105,7 +105,7 @@ def test_vmem_mode_agrees_with_chained_and_oracle():
         NoPartitioningConfiguration(mode="chained"), seed=8
     )
     vmem = NoPartitioningHashJoiner(
-        NoPartitioningConfiguration(mode="vmem"), seed=8, interpret=True
+        NoPartitioningConfiguration(mode="vmem"), seed=8
     )
     assert chained.run(a, b) == oracle
     assert vmem.run(a, b) == oracle
@@ -123,7 +123,7 @@ def test_vmem_mode_timer_and_duplicates():
         np.array([1, 2, 3, 1], np.int32), np.arange(4, dtype=np.int32)
     )
     joiner = NoPartitioningHashJoiner(
-        NoPartitioningConfiguration(mode="vmem"), seed=9, interpret=True
+        NoPartitioningConfiguration(mode="vmem"), seed=9
     )
     timer = HashJoinTimer(Parameters())
     assert joiner.run(a, b, timer) == 3
@@ -136,9 +136,11 @@ def test_vmem_mode_timer_and_duplicates():
 def test_vmem_mode_auto_resolution_and_empty_sides():
     from partitionedhashjoin_tpu.config import NoPartitioningConfiguration
 
-    # interpret=True forces the kernel path even off-TPU (auto -> vmem)
-    joiner = NoPartitioningHashJoiner(seed=10, interpret=True)
-    assert joiner._resolve_mode() == "vmem"
+    # auto resolves to the module's measured choice on every backend
+    from partitionedhashjoin_tpu.ops import no_partitioning
+
+    joiner = NoPartitioningHashJoiner(seed=10)
+    assert joiner._resolve_mode() == no_partitioning.AUTO_MODE
     empty = make_table(
         np.empty(0, np.int32), np.empty(0, np.int32)
     )
@@ -149,8 +151,7 @@ def test_vmem_mode_auto_resolution_and_empty_sides():
 
 
 def test_vmem_mode_chunked_probe_matches_oracle():
-    """vmem_probe_chunk_rows bounds single-program runtime (the device
-    watchdog gotcha): a probe larger than the chunk target must split into
+    """vmem_probe_chunk_rows bounds single-program size: a probe larger than the chunk target must split into
     fixed-size overlap-masked windows whose counts sum to the exact
     oracle — including prime-sized probes that divide nothing."""
     from partitionedhashjoin_tpu.config import NoPartitioningConfiguration
@@ -162,7 +163,6 @@ def test_vmem_mode_chunked_probe_matches_oracle():
     chunked = NoPartitioningHashJoiner(
         NoPartitioningConfiguration(mode="vmem", vmem_probe_chunk_rows=1000),
         seed=12,
-        interpret=True,
     )
     timer = HashJoinTimer(Parameters())
     assert chunked.run(a, b, timer) == oracle

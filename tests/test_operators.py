@@ -264,26 +264,21 @@ class TestSortAggregate:
         )
 
     def test_kernel_compaction_agrees_with_sort_path(self):
-        # the Mosaic pass-2 compaction (interpret mode here) must produce
-        # identical GroupByResults to the 2-key/4-value sort it replaces,
-        # across densities incl. nearly-all-distinct and heavy-duplicate
+        # the scatter pass-2 compaction must produce identical
+        # GroupByResults to the 2-key value-carrying sort, across
+        # densities incl. nearly-all-distinct and heavy-duplicate
         from partitionedhashjoin_tpu.ops.aggregate import (
             filter_sort_aggregate,
             sort_aggregate,
         )
 
-        # shape discipline: each distinct (shape, capacity) of the kernel
-        # program costs a ~60 s interpret-mode compile on the CPU host
-        # (round-4 profiling; warm calls are 0.2 s).  Density variants
-        # share ONE shape+capacity, the pad path and the filtered variant
-        # get one compile each — same coverage, 6 compiles -> 3.
         rng = np.random.default_rng(15)
         for n, hi in ((8192, 37), (8192, 3), (9000, 8000)):
             keys = rng.integers(0, hi, n).astype(np.int32)
             pay = rng.integers(-100, 100, n).astype(np.int32)
             t = make_table(keys, pay)
             gs = sort_aggregate(t, compaction="sort")
-            gk = sort_aggregate(t, compaction="kernel", interpret=True)
+            gk = sort_aggregate(t, compaction="scatter")
             num = int(gs.num_groups)
             assert num == int(gk.num_groups)
             for field in ("keys", "count", "sum", "min", "max"):
@@ -303,7 +298,7 @@ class TestSortAggregate:
         )
         fk, ck = filter_sort_aggregate(
             t, lambda k, p: p > 0, group_capacity=hi + 10,
-            compaction="kernel", interpret=True,
+            compaction="scatter",
         )
         assert int(cs) == int(ck)
         num = int(fs.num_groups)
@@ -433,35 +428,27 @@ def test_sort_aggregate_sums_stay_int32_under_x64():
 
 class TestSortAggregatePallasSorter:
     def test_pass1_pallas_sorter_agrees(self):
-        """Engine-wide sorter switch drives GROUP BY pass 1: identical
-        GroupByResults (group order is key-ascending either way)."""
-        from partitionedhashjoin_tpu.ops import merge_join
+        """GROUP BY pass 1 over the filtered relation: both pass-2
+        compactions give identical GroupByResults (group order is
+        key-ascending either way), and agree with numpy."""
         from partitionedhashjoin_tpu.ops.aggregate import (
             filter_sort_aggregate,
         )
 
-        # one interpret-mode tuple-sort compile (~170 s on the CPU host):
-        # the FILTERED variant covers the plain path too — same sorter, and
-        # the validity column is the only extra plumbing (round-4 trim; the
-        # sorter itself has its own exhaustive suite in test_bitonic_sort)
         rng = np.random.default_rng(16)
         n = 3000
         keys = rng.integers(-50, 50, n).astype(np.int32)
         pay = rng.integers(-100, 100, n).astype(np.int32)
         t = make_table(keys, pay)
-        merge_join.set_sort_impl("pallas")
-        try:
-            fp, cp = filter_sort_aggregate(
-                t, lambda k, p: p > 0, compaction="sort", interpret=True
-            )
-        finally:
-            merge_join.set_sort_impl("xla")
+        fp, cp = filter_sort_aggregate(
+            t, lambda k, p: p > 0, compaction="scatter"
+        )
         fs, cs = filter_sort_aggregate(
             t, lambda k, p: p > 0, compaction="sort"
         )
-        assert int(cs) == int(cp)
+        assert int(cs) == int(cp) == int((pay > 0).sum())
         num = int(fs.num_groups)
-        assert num == int(fp.num_groups)
+        assert num == int(fp.num_groups) == len(np.unique(keys[pay > 0]))
         for field in ("keys", "count", "sum", "min", "max"):
             np.testing.assert_array_equal(
                 np.asarray(getattr(fs, field))[:num],
@@ -470,8 +457,9 @@ class TestSortAggregatePallasSorter:
 
 
 def test_forced_kernel_compaction_refuses_wide_columns():
-    """Round-3 review: compaction='kernel' with non-int32 columns must
-    raise, never silently truncate the carried cumsum."""
+    """Both pass-2 compactions stay exact with int64 payloads beyond 2^32
+    (the carried cumsum must never be truncated), and an unknown
+    compaction name is refused."""
     import jax
     import pytest as _pytest
     from partitionedhashjoin_tpu.ops.aggregate import sort_aggregate
@@ -481,15 +469,18 @@ def test_forced_kernel_compaction_refuses_wide_columns():
         pay = jnp.asarray(np.full(100, 2**33), jnp.int64)
         t = make_table(np.asarray(keys), np.zeros(100, np.int32))
         t = type(t)(keys=keys, payloads=pay)
-        with _pytest.raises(TypeError, match="int32-only"):
-            sort_aggregate(t, compaction="kernel", interpret=True)
+        for compaction in ("scatter", "sort"):
+            g = sort_aggregate(t, compaction=compaction)
+            assert int(g.num_groups) == 5
+            assert (np.asarray(g.sum)[:5] == 20 * 2**33).all()
+        with _pytest.raises(ValueError, match="compaction"):
+            sort_aggregate(t, compaction="kernel")
 
 
 class TestStagedFilterAggregate:
     """filter_sort_aggregate_staged (round 4): the two-dispatch filter-first
-    pipeline must agree exactly with the fused path — the block-compaction
-    kernel's alignment sentinels and undefined tail ride the validity
-    machinery, never the aggregates."""
+    pipeline must agree exactly with the fused path — the compacted tail
+    rides the validity machinery, never the aggregates."""
 
     def _compare(self, t, pred, cap):
         from partitionedhashjoin_tpu.ops.aggregate import (
@@ -499,7 +490,7 @@ class TestStagedFilterAggregate:
 
         gf, cf = filter_sort_aggregate(t, pred, group_capacity=cap)
         gs, cs = filter_sort_aggregate_staged(
-            t, pred, group_capacity=cap, interpret=True
+            t, pred, group_capacity=cap
         )
         assert int(cf) == int(cs)
         num = int(gf.num_groups)
@@ -516,12 +507,10 @@ class TestStagedFilterAggregate:
 
     def test_agrees_with_fused_across_selectivities(self):
         rng = np.random.default_rng(21)
-        # shape discipline (round 4): distinct input sizes each recompile
-        # the interpret-mode compaction kernel (~60 s); reuse n=8192, with
-        # one 9000 case covering the pad/multi-block path
+        # one size that no bucket divides evenly (9000)
         for n, hi, keep in (
             (8192, 37, 0.5),     # one block, mixed selectivity
-            (9000, 4000, 0.1),   # non-BLK-multiple n (padding), sparse
+            (9000, 4000, 0.1),   # uneven buckets, sparse
             (8192, 5, 0.95),     # heavy duplicates, nearly all kept
         ):
             keys = rng.integers(0, hi, n).astype(np.int32)
@@ -541,13 +530,13 @@ class TestStagedFilterAggregate:
         )
 
         g, count = filter_sort_aggregate_staged(
-            t, lambda k, p: p > 1000, group_capacity=60, interpret=True
+            t, lambda k, p: p > 1000, group_capacity=60
         )
         assert int(count) == 0 and int(g.num_groups) == 0
 
     def test_genuine_zero_key_rows_survive(self):
-        # compaction pads/zero-fills with key 0: genuine key-0 groups must
-        # be exact regardless (validity comes from pos, not key values)
+        # compaction zero-fills with key 0: genuine key-0 groups must be
+        # exact regardless (validity comes from the count, not key values)
         keys = np.zeros(8192, np.int32)
         pay = np.arange(8192, dtype=np.int32) - 4096
         t = make_table(keys, pay)
@@ -566,7 +555,7 @@ class TestStagedFilterAggregate:
             t = type(t)(keys=keys, payloads=pay)
             with pytest.raises(TypeError, match="int32-only"):
                 filter_sort_aggregate_staged(
-                    t, lambda k, p: p > 0, interpret=True
+                    t, lambda k, p: p > 0
                 )
 
     def test_capacity_truncates_but_num_groups_exact(self):
@@ -577,7 +566,7 @@ class TestStagedFilterAggregate:
         keys = np.arange(8192, dtype=np.int32)
         t = make_table(keys, keys)
         g, count = filter_sort_aggregate_staged(
-            t, lambda k, p: p >= 0, group_capacity=10, interpret=True
+            t, lambda k, p: p >= 0, group_capacity=10
         )
         assert int(count) == 8192
         assert int(g.num_groups) == 8192  # exact despite truncation
@@ -606,9 +595,7 @@ class TestDistinctAndMean:
         t = make_table(keys, pay)
         gs = sort_aggregate(t, compaction="sort", with_distinct=True)
         self._oracle(gs, keys, pay)
-        gk = sort_aggregate(
-            t, compaction="kernel", interpret=True, with_distinct=True
-        )
+        gk = sort_aggregate(t, compaction="scatter", with_distinct=True)
         num = int(gs.num_groups)
         assert num == int(gk.num_groups)
         np.testing.assert_array_equal(
@@ -630,7 +617,7 @@ class TestDistinctAndMean:
         gf, cf = filter_sort_aggregate(t, pred, with_distinct=True)
         self._oracle(gf, keys, pay, sel)
         gs, cs = filter_sort_aggregate_staged(
-            t, pred, interpret=True, with_distinct=True
+            t, pred, with_distinct=True
         )
         assert int(cf) == int(cs)
         num = int(gf.num_groups)
@@ -788,7 +775,7 @@ class TestAggregateSorted:
         rng = np.random.default_rng(52)
         keys = np.sort(rng.integers(0, 37, 8192)).astype(np.int32)
         pay = rng.integers(-100, 100, 8192).astype(np.int32)
-        self._compare(keys, pay, compaction="kernel", interpret=True)
+        self._compare(keys, pay, compaction="scatter")
 
     def test_n_valid_ignores_tail(self):
         from partitionedhashjoin_tpu.ops.aggregate import (
@@ -847,7 +834,7 @@ class TestAggregateSorted:
         b_pay = rng.integers(-100, 100, 4000).astype(np.int32)
         keys, pa, pb, count = two_run_materialize(
             jnp.asarray(a_keys), jnp.asarray(a_pay),
-            jnp.asarray(b_keys), jnp.asarray(b_pay), interpret=True,
+            jnp.asarray(b_keys), jnp.asarray(b_pay),
         )
         c = int(count)
         g = aggregate_sorted(
@@ -960,7 +947,7 @@ class TestAggregateSorted:
         b_pay = rng.integers(-50, 50, 3000).astype(np.int32)
         keys, pa, pb, count = two_run_materialize(
             jnp.asarray(a_keys), jnp.asarray(a_keys * 2),
-            jnp.asarray(b_keys), jnp.asarray(b_pay), interpret=True,
+            jnp.asarray(b_keys), jnp.asarray(b_pay),
             probe_payload_sorted=True,
         )
         g = aggregate_sorted(

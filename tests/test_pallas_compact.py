@@ -1,22 +1,24 @@
-"""Pallas block-compaction kernel (ops/pallas/compact.py), interpret mode.
+"""Stream compaction (ops/filter.py::compact: exclusive prefix sum +
+scatter), the pass-2 and staged-filter compaction of the aggregate.
 
-Oracle: numpy boolean indexing (stable front compaction).  Covers the
-aligned-gap contract of ``block_compact``, exact compaction + capacity
-semantics of ``compact_columns``, all-kept / none-kept / dense / sparse
-patterns, and multi-column carry.
+Oracle: numpy boolean indexing (stable front compaction).  Covers all-kept /
+none-kept / dense / sparse patterns, multi-column carry, the zero tail and
+the capacity bound.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from partitionedhashjoin_tpu.ops.pallas import compact as pc
-from partitionedhashjoin_tpu.ops.pallas.bitonic_sort import BLK
+from partitionedhashjoin_tpu.ops.filter import compact
+
+#: rows of one block of the former block-compaction kernel; the shapes
+#: below keep its multi-block cases
+BLK = 8192
 
 
-def _run_block_compact(keep, *cols):
-    out = pc.block_compact(jnp.asarray(keep), *map(jnp.asarray, cols),
-                           interpret=True)
+def _run(keep, *cols, **kw):
+    out = compact(jnp.asarray(keep), *map(jnp.asarray, cols), **kw)
     return (int(out[0]),) + tuple(np.asarray(o) for o in out[1:])
 
 
@@ -29,24 +31,21 @@ class TestBlockCompact:
         rng = np.random.default_rng(seed)
         keep = rng.random(n) < density
         vals = rng.integers(1, 2**31, n).astype(np.int32)
-        total, pos, out = _run_block_compact(keep, vals)
-        # within the aligned prefix, dropping sentinels yields exactly the
-        # kept records in original order
-        sel = pos[:total] >= 0
-        np.testing.assert_array_equal(pos[:total][sel], np.where(keep)[0])
-        np.testing.assert_array_equal(out[:total][sel], vals[keep])
-        # per-block alignment: gaps < 128 per source block
-        assert total <= keep.sum() + (n // BLK) * 128
+        pos = np.arange(n, dtype=np.int32)
+        total, pos_c, out = _run(keep, pos, vals)
+        # the kept records, in original order, with no gaps
+        assert total == keep.sum()
+        np.testing.assert_array_equal(pos_c[:total], np.where(keep)[0])
+        np.testing.assert_array_equal(out[:total], vals[keep])
 
     def test_multi_column_carry(self):
         n = 2 * BLK
         rng = np.random.default_rng(7)
         keep = rng.random(n) < 0.3
         cols = [rng.integers(0, 1000, n).astype(np.int32) for _ in range(4)]
-        total, pos, *outs = _run_block_compact(keep, *cols)
-        sel = pos[:total] >= 0
+        total, *outs = _run(keep, *cols)
         for c, o in zip(cols, outs):
-            np.testing.assert_array_equal(o[:total][sel], c[keep])
+            np.testing.assert_array_equal(o[:total], c[keep])
 
 
 class TestCompactColumns:
@@ -59,41 +58,29 @@ class TestCompactColumns:
         keep = rng.random(n) < density
         a = rng.integers(-(2**31), 2**31, n).astype(np.int32)
         b = np.arange(n, dtype=np.int32)
-        count, ok, pos, ca, cb = pc.compact_columns(
-            jnp.asarray(keep), jnp.asarray(a), jnp.asarray(b),
-            interpret=True,
-        )
-        c = int(count)
-        assert bool(ok)
+        c, ca, cb = _run(keep, a, b)
         assert c == int(keep.sum())
-        np.testing.assert_array_equal(np.asarray(pos)[:c], np.where(keep)[0])
-        np.testing.assert_array_equal(np.asarray(ca)[:c], a[keep])
-        np.testing.assert_array_equal(np.asarray(cb)[:c], b[keep])
+        np.testing.assert_array_equal(ca[:c], a[keep])
+        np.testing.assert_array_equal(cb[:c], b[keep])
         # zero tail
-        assert not np.asarray(ca)[c:].any()
+        assert not ca[c:].any() and not cb[c:].any()
 
     def test_capacity_overflow_flag(self):
         n = 2 * BLK
         keep = np.ones(n, bool)  # everything kept
         vals = np.arange(n, dtype=np.int32)
-        count, ok, pos, cv = pc.compact_columns(
-            jnp.asarray(keep), jnp.asarray(vals), capacity=100,
-            interpret=True,
-        )
-        assert int(count) == n  # exact even on overflow
-        assert not bool(ok)  # capacity too small -> caller must retry
+        count, cv = _run(keep, vals, capacity=100)
+        assert count == n  # exact even past the capacity
+        assert cv.shape == (100,)
+        np.testing.assert_array_equal(cv, vals[:100])
 
     def test_capacity_bound_respected_with_slack(self):
-        # sparse keeps within capacity: ok and exact
+        # sparse keeps within capacity: exact, zero tail to the bound
         n = 4 * BLK
         rng = np.random.default_rng(21)
         keep = rng.random(n) < 0.02
-        vals = rng.integers(0, 99, n).astype(np.int32)
-        count, ok, pos, cv = pc.compact_columns(
-            jnp.asarray(keep), jnp.asarray(vals),
-            capacity=2048, interpret=True,
-        )
-        assert bool(ok) and int(count) == int(keep.sum())
-        np.testing.assert_array_equal(
-            np.asarray(cv)[: int(count)], vals[keep]
-        )
+        vals = rng.integers(1, 99, n).astype(np.int32)
+        count, cv = _run(keep, vals, capacity=2048)
+        assert count == int(keep.sum()) and cv.shape == (2048,)
+        np.testing.assert_array_equal(cv[:count], vals[keep])
+        assert not cv[count:].any()

@@ -1,25 +1,28 @@
-"""Pallas kernel tests, run in interpreter mode on the CPU mesh.
-
-Real-TPU execution of the same kernels is exercised by bench.py; these
-validate kernel semantics hermetically (interpret=True runs the identical
-kernel body through the Pallas interpreter).
+"""The scan half of the concatenated sort-merge count
+(ops/sort_merge.py::sort_merge_count: where → cummax → compare → sum), on
+the cases that once pinned its fused streaming-pass form: long equal-key
+runs, probe-only runs after a smaller build key, and INT32_MAX rows.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from partitionedhashjoin_tpu.ops.pallas import merge_count as mc
+from partitionedhashjoin_tpu.ops.sort_merge import sort_merge_count
+
+#: rows of one block of the former fused pass; runs longer than it cross
+#: what used to be a carried boundary
+BLOCK = 512 * 128
 
 
 def _oracle_inputs(rng, n_a, n_b, lo=-500, hi=500):
     a = rng.integers(lo, hi, n_a).astype(np.int32)
     b = rng.integers(lo - 100, hi + 100, n_b).astype(np.int32)
-    keys = np.concatenate([a, b])
-    is_build = np.concatenate([np.ones(n_a, bool), np.zeros(n_b, bool)])
-    order = np.argsort(keys, kind="stable")  # builds precede ties (concat order)
-    return keys[order], is_build[order], int(np.isin(b, a).sum())
+    return a, b, int(np.isin(b, a).sum())
+
+
+def _count(a, b):
+    return int(sort_merge_count(jnp.asarray(a), jnp.asarray(b)))
 
 
 @pytest.mark.parametrize(
@@ -27,63 +30,24 @@ def _oracle_inputs(rng, n_a, n_b, lo=-500, hi=500):
 )
 def test_merge_count_matches_oracle(n_a, n_b):
     rng = np.random.default_rng(n_a + n_b)
-    ks, bs, expected = _oracle_inputs(rng, n_a, n_b)
-    got = int(
-        mc.merge_count_sorted(
-            jnp.asarray(ks), jnp.asarray(bs), interpret=True
-        )
-    )
-    assert got == expected
+    a, b, expected = _oracle_inputs(rng, n_a, n_b)
+    assert _count(a, b) == expected
 
 
 def test_merge_count_multi_block_carry():
-    # force several grid steps so the SMEM carry crosses block boundaries:
-    # one build key at the very start, all probe rows equal to it
-    n = 3 * mc.BLOCK + 17
-    keys = np.zeros(n, np.int32)
-    is_build = np.zeros(n, bool)
-    is_build[0] = True
-    got = int(
-        mc.merge_count_sorted(
-            jnp.asarray(keys), jnp.asarray(is_build), interpret=True
-        )
-    )
-    assert got == n - 1
+    # one build key, then a probe run of it longer than several blocks
+    n = 3 * BLOCK + 17
+    assert _count(np.zeros(1, np.int32), np.zeros(n - 1, np.int32)) == n - 1
 
 
 def test_merge_count_run_spanning_blocks_without_build():
     # a probe-only run spanning blocks must not match a smaller earlier build
-    n = 2 * mc.BLOCK
-    keys = np.concatenate(
-        [np.array([5], np.int32), np.full(n - 1, 7, np.int32)]
-    )
-    is_build = np.zeros(n, bool)
-    is_build[0] = True  # build key 5; probes all 7
-    got = int(
-        mc.merge_count_sorted(
-            jnp.asarray(keys), jnp.asarray(is_build), interpret=True
-        )
-    )
-    assert got == 0
+    n = 2 * BLOCK
+    assert _count(np.array([5], np.int32), np.full(n - 1, 7, np.int32)) == 0
 
 
 def test_merge_count_int_max_probe_rows_unaffected_by_padding():
-    # genuine INT32_MAX probe rows precede the kernel's (INT32_MAX, build)
-    # padding, so they must not match unless a real build INT32_MAX exists
+    # INT32_MAX probe rows match only when INT32_MAX is a real build key
     m = np.iinfo(np.int32).max
-    keys = np.array([1, m, m], np.int32)
-    is_build = np.array([True, False, False])
-    got = int(
-        mc.merge_count_sorted(
-            jnp.asarray(keys), jnp.asarray(is_build), interpret=True
-        )
-    )
-    assert got == 0
-    keys2 = np.array([1, m, m, m], np.int32)
-    is_build2 = np.array([True, True, False, False])
-    got2 = int(
-        mc.merge_count_sorted(
-            jnp.asarray(keys2), jnp.asarray(is_build2), interpret=True
-        )
-    )
-    assert got2 == 2
+    assert _count(np.array([1], np.int32), np.array([m, m], np.int32)) == 0
+    assert _count(np.array([1, m], np.int32), np.array([m, m], np.int32)) == 2

@@ -1,7 +1,7 @@
-"""Multi-chip shuffle-join tests on the 8-device virtual CPU mesh.
+"""Multi-device shuffle-join tests on the 8-device virtual CPU mesh.
 
 The reference has no distributed backend (SURVEY.md §2); these validate the
-TPU-native scale-out design: hash-sharded all_to_all exchange, per-shard
+mesh scale-out design: hash-sharded all_to_all exchange, per-shard
 local joins, psum counts, heavy-hitter replication for Zipf skew, and the
 overflow-retry exactness guarantee.
 """

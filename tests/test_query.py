@@ -1,8 +1,8 @@
 """Query-layer tests: fluent plans, physical rewrites, and mesh execution.
 
 Every executed plan is checked against either a direct operator call or a
-host-side numpy oracle.  Kernel-path (interpret-mode Pallas) tests reuse
-the (100, 3000, probe_payload_sorted=True) shape already compiled by
+host-side numpy oracle.  Two-run-path tests reuse the
+(100, 3000, probe_payload_sorted=True) shape already compiled by
 test_operators.py — shape discipline per CLAUDE.md.
 """
 
@@ -338,11 +338,9 @@ class TestGroupBy:
         assert _group_dict(g) == want
 
     def test_join_group_by_staged_filter_kernel(self):
-        # R7 = R5∘R3: filtered join→GROUP BY stages the Pallas block
+        # R7 = R5∘R3: filtered join→GROUP BY stages the scatter
         # compaction, re-keys invalid build rows to the sentinel, and
-        # runs the plain kernel pipeline on the survivors — exact vs the
-        # typed-materializer plan (shape discipline: n_b=8192 reuses the
-        # interpret kernel programs other tests compile)
+        # runs the two-run pipeline on the survivors — exact vs numpy
         rng = np.random.default_rng(77)
         n_a, n_b = 2048, 8192
         a = _t(rng.integers(0, 4000, n_a), rng.integers(0, 100, n_a))
@@ -350,13 +348,9 @@ class TestGroupBy:
         bp = lambda k, p: p % 2 == 0
         ap = lambda k, p: p != 7
         q = scan(b).filter(bp).join(scan(a).filter(ap)).group_by()
-        plan = q.explain(interpret=True)
+        plan = q.explain()
         assert "R7" in plan and "staged" in plan
-        g = q.execute(interpret=True)  # staged kernel path
-        g2 = q.execute()  # typed path (no Mosaic on CPU, not interpret)
-        n = int(g.num_groups)
-        assert n == int(g2.num_groups)
-        assert _group_dict(g) == _group_dict(g2)
+        g = q.execute()  # staged two-run path
         # oracle from numpy
         ak = np.unique(
             np.asarray(a.keys)[np.asarray(ap(a.keys, a.payloads))]
@@ -382,7 +376,7 @@ class TestGroupBy:
         b = _t(bk, rng.integers(-100, 100, n_b))
         bp = lambda k, p: p % 2 == 0
         q = scan(b).filter(bp).join(scan(a)).group_by()
-        g = q.execute(interpret=True)
+        g = q.execute()
         sel = np.asarray(bp(b.keys, b.payloads)) & np.isin(
             bk, np.unique(ak)
         )
@@ -409,17 +403,16 @@ class TestGroupBy:
         assert _group_dict(g) == want
 
     def test_join_group_by_kernel_path_interpret(self):
-        """R3: the kernel materializer + aggregate_sorted plan (reuses the
-        (100, 3000) interpret shape from test_operators.py)."""
+        """R3: the two-run materializer + aggregate_sorted plan."""
         rng = np.random.default_rng(58)
         a = _t(np.arange(1, 101), np.arange(1, 101) * 2)
         b = _t(
             rng.integers(1, 131, 3000), rng.integers(-50, 50, 3000)
         )
         q = scan(b).join(scan(a)).group_by()
-        text = q.explain(interpret=True)
+        text = q.explain()
         assert "R3" in text and "aggregate_sorted" in text
-        g = q.execute(interpret=True)
+        g = q.execute()
         bk, bp = np.asarray(b.keys), np.asarray(b.payloads)
         m = bk <= 100
         want = _np_group(bk[m], bp[m])

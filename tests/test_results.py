@@ -125,17 +125,24 @@ class TestProfiling:
     def test_roofline_math(self):
         from partitionedhashjoin_tpu.utils.profiling import roofline
 
-        r = roofline(seconds=1.0, bytes_moved=819_000_000_000, chip="v5e")
-        assert abs(r.achieved_gbps - 819.0) < 1e-6
+        r = roofline(
+            seconds=1.0, bytes_moved=3_350_000_000_000,
+            device_kind="NVIDIA H100 80GB HBM3",
+        )
+        assert abs(r.achieved_gbps - 3350.0) < 1e-6
         assert abs(r.fraction_of_peak - 1.0) < 1e-6
         assert "100%" in str(r)
 
-    def test_sort_merge_bytes_scale(self):
-        from partitionedhashjoin_tpu.utils.profiling import sort_merge_bytes
+    def test_unknown_device_kind_raises(self):
+        import pytest
 
-        b = sort_merge_bytes(10_000_000, 200_000_000)
-        # ~8 passes * 210M * 5B * 2 + one scan pass: in the 15-20 GB range
-        assert 10e9 < b < 30e9
+        from partitionedhashjoin_tpu.utils.profiling import peak_gbps, roofline
+
+        for kind in ("cpu", "Tesla V100-SXM2-16GB", "NVIDIA A100-SXM4-80GB"):
+            with pytest.raises(ValueError, match="no peak bandwidth"):
+                peak_gbps(kind)
+        with pytest.raises(ValueError):
+            roofline(1.0, 1, device_kind="cpu")
 
     def test_trace_context_manager_runs(self, tmp_path):
         import jax.numpy as jnp
