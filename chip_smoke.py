@@ -46,22 +46,21 @@ SQL_TOP10 = (
     "SELECT key, COUNT(*), SUM(b.payload) FROM b JOIN a USING (key) "
     "WHERE b.payload % 2 = 0 GROUP BY key ORDER BY count DESC LIMIT 10"
 )
+#: the reference workload: 10M sequential build keys, 200M Zipf probe keys
+PRIMARY, SECONDARY = 10_000_000, 200_000_000
+#: Zipf skew of one card, and of four (heavy enough for hot-key replication)
+SKEW, MULTI_SKEW = 1.05, 1.25
+#: warm repetitions per timing; the median is reported
+REPS = 3
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--primary", type=int, default=10_000_000)
-    p.add_argument("--secondary", type=int, default=200_000_000)
-    p.add_argument("--skew", type=float, default=None,
-                   help="Zipf skew (default 1.05; 1.25 with --multi)")
     p.add_argument("--seed", type=int, default=20260816)
-    p.add_argument("--reps", type=int, default=3,
-                   help="warm repetitions per timing (median reported)")
     p.add_argument("--multi", action="store_true",
                    help="run only the four-GPU shuffle-join path")
     args = p.parse_args(argv)
-    if args.skew is None:
-        args.skew = 1.25 if args.multi else 1.05
+    args.skew = MULTI_SKEW if args.multi else SKEW
     return args
 
 
@@ -199,23 +198,19 @@ def top_k_oracle(g: dict, k: int):
 # phases
 
 
-def _tables(args, key_dtype="int32", skew=None):
+def _tables(args):
     from partitionedhashjoin_tpu import cli
     from partitionedhashjoin_tpu.utils import logger as logging_utils
 
-    argv = _cli_argv(args, "sort-merge", skew=skew)
-    if key_dtype != "int32":
-        argv += ["--key-dtype", key_dtype]
-    config, _ = cli.parse_arguments(argv)
+    config, _ = cli.parse_arguments(_cli_argv(args, "sort-merge"))
     return cli.generate_tables(config, logging_utils.get_new_logger("Smoke"))
 
 
-def _cli_argv(args, join, skew=None):
+def _cli_argv(args, join):
     return [
-        "--primary", str(args.primary), "--secondary", str(args.secondary),
-        "--skew", str(args.skew if skew is None else skew),
-        "--seed", str(args.seed), "--join", join, "--output", "stdout",
-        "--log", "warning",
+        "--primary", str(PRIMARY), "--secondary", str(SECONDARY),
+        "--skew", str(args.skew), "--seed", str(args.seed), "--join", join,
+        "--output", "stdout", "--log", "warning",
     ]
 
 
@@ -253,7 +248,7 @@ def phase_cli(args, rep: Report, oracle: int):
             a, b = cli.generate_tables(config, log)
             params = cli._base_parameters(config)
             joiner, ta, tb = cli.build_joiner(join, config, ns, params, a, b)
-            count, first, warm = timed(lambda: joiner.run(ta, tb), args.reps)
+            count, first, warm = timed(lambda: joiner.run(ta, tb), REPS)
             want = oracle
             if name.endswith("int64"):
                 # the int64 draws are their own; the oracle runs on them
@@ -283,7 +278,7 @@ def phase_materialize(args, rep: Report, a, b, oracle: int):
                     jnp.where(live, jt.payloads_a == jt.keys - 1, True)
                 )
                 return jt.count, pay_ok
-            (count, pay_ok), first, warm = timed(run, args.reps)
+            (count, pay_ok), first, warm = timed(run, REPS)
             rep.check("materialize", f"order={order} count", int(count),
                       oracle, first, warm)
             rep.check("materialize", f"order={order} pay_a == key - 1",
@@ -311,7 +306,7 @@ def phase_operators(args, rep: Report, a, b, b_keys_np, b_pay_np):
                 b, lambda k, p: p % 2 == 0
             )
             return g, n_sel
-        (g, n_sel), first, warm = timed(staged, args.reps)
+        (g, n_sel), first, warm = timed(staged, REPS)
         num = int(g.num_groups)
         rep.check("operators", "staged GROUP BY selected rows",
                   int(n_sel), int(even.sum()), first, warm)
@@ -329,7 +324,7 @@ def phase_operators(args, rep: Report, a, b, b_keys_np, b_pay_np):
     try:
         r, first, warm = timed(
             lambda: execute_sql(SQL_TOP10, tables={"a": a, "b": b}),
-            args.reps,
+            REPS,
         )
         cut, tied = top_k_oracle(g_want, 10)
         cols = list(r.columns)
@@ -351,7 +346,7 @@ def phase_operators(args, rep: Report, a, b, b_keys_np, b_pay_np):
         def agg():
             s = scan(b).filter(lambda k, p: p % 2 == 0).aggregate()
             return s.count, s.sum, s.min, s.max
-        (c, s, mn, mx), first, warm = timed(agg, args.reps)
+        (c, s, mn, mx), first, warm = timed(agg, REPS)
         sel = b_pay_np[even].astype(np.int64)
         rep.check("operators", "Query.aggregate count", int(c),
                   int(sel.size), first, warm)
@@ -449,7 +444,7 @@ def phase_decisions(args, rep: Report, a, b):
         left, right = lo[row_blk], hi[row_blk]
         for _ in range(steps):
             active = left < right
-            mid = (left + right) // 2
+            mid = left + (right - left) // 2
             v = a_s[jnp.minimum(mid, n_a - 1)]
             go = active & (v < b_s)
             left, right = (jnp.where(go, mid + 1, left),
@@ -522,7 +517,7 @@ def phase_decisions(args, rep: Report, a, b):
 
     for name, fn in contenders:
         try:
-            _, first, warm = timed(fn, args.reps)
+            _, first, warm = timed(fn, REPS)
             rep.timing("decisions", name, first, warm)
         except Exception as e:  # noqa: BLE001
             rep.fail("decisions", name, e)
@@ -541,10 +536,10 @@ def phase_decisions(args, rep: Report, a, b):
                 OUT_DIR, "trace_" + name.split()[0].replace("-", "_")
             )
             with jax.profiler.trace(trace_dir):
-                for _ in range(args.reps):
+                for _ in range(REPS):
                     jax.block_until_ready(fn(ak, bk))
             total, top = kernel_times(trace_dir)
-            print(f"[decisions] {name} trace: {args.reps} runs, "
+            print(f"[decisions] {name} trace: {REPS} runs, "
                   f"device_ns={total} card=[{rep.card}]", flush=True)
             for kname, ns in top:
                 print(f"[decisions]   kernel share={ns / total:.4f} "
@@ -575,7 +570,7 @@ def run_single(args, rep: Report) -> None:
 
     t0 = time.perf_counter()
     rep.check("oracle", "host oracle == n_probe (keys drawn in [1, n_build])",
-              oracle, args.secondary)
+              oracle, SECONDARY)
     for name, (got, want) in counts.items():
         rep.check("oracle", f"{name} == host oracle", got, want)
     rep.phase_done("3 oracle", time.perf_counter() - t0)
@@ -623,7 +618,7 @@ def run_multi(args, rep: Report) -> None:
     a_np = np.asarray(jax.device_get(a.keys))
     b_np = np.asarray(jax.device_get(b.keys))
     oracle = join_oracle(a_np, b_np)
-    rep.check("multi", "host oracle == n_probe", oracle, args.secondary)
+    rep.check("multi", "host oracle == n_probe", oracle, SECONDARY)
     a_sh, b_sh = shard_table(a, mesh), shard_table(b, mesh)
     del a, b
 
@@ -632,7 +627,7 @@ def run_multi(args, rep: Report) -> None:
             j = sh.DistributedShuffleJoiner(
                 mesh, seed=args.seed, pipeline_chunks=chunks
             )
-            count, first, warm = timed(lambda: j.run(a_sh, b_sh), args.reps)
+            count, first, warm = timed(lambda: j.run(a_sh, b_sh), REPS)
             rep.check("multi", f"shuffle join pipeline_chunks={chunks}",
                       count, oracle, first, warm)
         except Exception as e:  # noqa: BLE001
@@ -658,7 +653,7 @@ def run_multi(args, rep: Report) -> None:
         r, first, warm = timed(lambda: execute_sql(
             "SELECT COUNT(*) FROM b JOIN a USING (key)",
             tables={"a": a_sh, "b": b_sh}, mesh=mesh,
-        ), args.reps)
+        ), REPS)
         rep.check("multi", "SQL COUNT over the mesh",
                   int(r.columns["count"][0]), oracle, first, warm)
     except Exception as e:  # noqa: BLE001
@@ -666,12 +661,12 @@ def run_multi(args, rep: Report) -> None:
 
     try:
         op = DistributedAggregateOperator(mesh, seed=args.seed)
-        g, first, warm = timed(lambda: op.run(b_sh), args.reps)
+        g, first, warm = timed(lambda: op.run(b_sh), REPS)
         counts = np.bincount(b_np)
         rep.check("multi", "distributed GROUP BY groups", int(g.num_groups),
                   int(np.count_nonzero(counts)), first, warm)
         rep.check("multi", "distributed GROUP BY total count",
-                  int(jax.device_get(jnp.sum(g.count))), args.secondary)
+                  int(jax.device_get(jnp.sum(g.count))), SECONDARY)
         num = int(g.num_groups)
         keys = np.asarray(jax.device_get(g.keys))[:num]
         cnt = np.asarray(jax.device_get(g.count))[:num]
@@ -682,7 +677,7 @@ def run_multi(args, rep: Report) -> None:
     rep.phase_done("multi", time.perf_counter() - t0)
 
 
-def main(argv=None, require_gpu: bool = True) -> int:
+def main(argv=None) -> int:
     args = parse_args(argv)
     sys.path.insert(0, REPO)
     try:
@@ -700,7 +695,7 @@ def main(argv=None, require_gpu: bool = True) -> int:
     devices = jax.devices()
     dev = devices[0]
     want = 4 if args.multi else 1
-    if require_gpu and (dev.platform != "gpu" or len(devices) < want):
+    if dev.platform != "gpu" or len(devices) < want:
         print(f"chip_smoke: needs {want} GPU(s); JAX sees "
               f"{len(devices)} {dev.platform} device(s)", file=sys.stderr)
         return 1

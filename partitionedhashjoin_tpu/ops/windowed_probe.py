@@ -8,7 +8,9 @@ block's first and last key — its window, found by two searches per block
 (not per row).  One program per probe block then searches only that window:
 bit_length(window) rounds instead of 24, a trip count that is uniform
 across the program, with all of the block's gathers landing in one small
-region of the build run (L1-resident).
+region of the build run.  The window is not staged in shared memory: each
+round is one dependent gather, read through L1/L2, so there is no load loop
+to pipeline.
 
 Exactness: every row is searched over its block's full window, so the
 count is the full-domain Get-semantics count; probe padding rows are masked
@@ -24,8 +26,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
-#: probe rows per program (a power of two, as Triton requires); 512, 1024
-#: and 2048 measured within 10 % of each other on the H100 (PERF.md)
+#: probe rows per program (a power of two, as Triton requires)
 BLOCK = 1024
 
 
@@ -41,7 +42,7 @@ def _window_count_kernel(a_ref, b_ref, lo_ref, steps_ref, hi_ref, out_ref,
     def body(_, carry):
         left, right = carry
         active = left < right
-        mid = (left + right) // 2
+        mid = left + (right - left) // 2  # no int32 overflow
         v = plgpu.load(a_ref.at[jnp.minimum(mid, n_a - 1)])
         go_right = active & (v < q)
         go_left = active & ~(v < q)
@@ -81,7 +82,7 @@ def windowed_count(a_sorted: jax.Array, b_sorted: jax.Array,
         functools.partial(_window_count_kernel, n_a=n_a, n_b=n_b),
         out_shape=jax.ShapeDtypeStruct((num_blocks,), jnp.int32),
         grid=(num_blocks,),
-        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        compiler_params=plgpu.CompilerParams(num_warps=4),
         backend="triton",
         interpret=interpret,
         name="windowed_probe_count",

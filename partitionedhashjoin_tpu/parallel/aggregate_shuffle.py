@@ -49,6 +49,7 @@ from partitionedhashjoin_tpu.ops import hashing
 from partitionedhashjoin_tpu.ops.aggregate import (
     GroupByResult,
     _seg_suffix_scan,
+    _scatter_compaction,
     _sort_group_and_aggregate,
 )
 from partitionedhashjoin_tpu.parallel.mesh import SHARD_AXIS
@@ -176,7 +177,7 @@ def _aggregate_exchange(
         g = _sort_group_and_aggregate(
             keys[0], pays[0], cap_local,
             valid=valid[0], has_valid=True,
-            scatter_compaction=False,
+            scatter_compaction=_scatter_compaction("auto"),
         )
         # exact need, not a flag: one retry then lands the right capacity
         local_need = g.num_groups
@@ -478,7 +479,7 @@ def _row_exchange_aggregate(
         g = _sort_group_and_aggregate(
             rk, rp, cap_groups,
             valid=rv, has_valid=True,
-            scatter_compaction=False,
+            scatter_compaction=_scatter_compaction("auto"),
             with_distinct=True,
         )
         return (

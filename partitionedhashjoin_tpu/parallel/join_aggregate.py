@@ -57,6 +57,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from partitionedhashjoin_tpu.data.table import Table
 from partitionedhashjoin_tpu.ops.aggregate import (
     GroupByResult,
+    _scatter_compaction,
     _sort_group_and_aggregate,
 )
 from partitionedhashjoin_tpu.parallel.aggregate_shuffle import (
@@ -122,7 +123,7 @@ def _join_aggregate_local(
         g = _sort_group_and_aggregate(
             keys, pays, cap_local,
             valid=valid, has_valid=True,
-            scatter_compaction=False,
+            scatter_compaction=_scatter_compaction("auto"),
         )
         local_need = g.num_groups
         slot = jnp.arange(cap_local, dtype=jnp.int32)
